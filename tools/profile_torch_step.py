@@ -1,0 +1,150 @@
+"""Profile viabel_torch's flagship step and FASO checks on one CUDA card.
+
+    python tools/profile_torch_step.py
+
+At the d=1000 full-rank flagship (``logistic_regression(n_data=512)``,
+``ExclusiveKL`` with S=10, RMSProp at lr 0.001, float32), for the STL and
+the entropy estimator in turn, it prints:
+
+- ``[step]``: host milliseconds per optimizer step (ring write included),
+  over 500 steps after 100 warm-up steps;
+- ``[elbo_grad]``: one value-and-gradient evaluation, median of 50
+  CUDA-event-timed calls, and the same per 1k draws;
+- ``[profile]``: 20 steps under ``torch.profiler``: their wall time, the
+  device time per step (kernels and copies on the card, each counted
+  once), and the device's busy share, that device time over the
+  unprofiled step time of ``[step]`` (the profiler itself slows the
+  host); then the profiler's table sorted by device time.
+
+Then it times the FASO checks on a full (600, D) ring (R-hat over five
+windows, window mean, MCSE check) with CUDA events, and prints the peak
+device memory. Nothing is written to disk. It needs one CUDA card.
+"""
+
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import viabel_torch as vt  # noqa: E402
+from viabel_torch.faso import _mcse_check  # noqa: E402
+from viabel_torch.mc_diagnostics import (ring_window_mean,  # noqa: E402
+                                         split_rhat_ring_windows)
+
+DIM = 1000
+N_DATA = 512
+S = 10
+LR = 0.001
+RING_ROWS = 600
+GROUP = 50
+
+
+def cuda_ms(fn, reps):
+    """Median milliseconds of ``reps`` calls timed with CUDA events, after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def profile_estimator(model, approx, generator, stl):
+    objective = vt.ExclusiveKL(approx, model, S, use_path_deriv=stl)
+    sgo = vt.RMSProp(LR)
+    state = {"param": approx.init_param()}
+    state["opt"] = sgo.init_state(state["param"])
+    ring = torch.zeros((RING_ROWS, state["param"].shape[0]), device="cuda")
+
+    def step(i):
+        param, opt, *_ = sgo.step(objective, state["param"], state["opt"],
+                                  generator, LR)
+        state["param"], state["opt"] = param, opt
+        ring[i % RING_ROWS] = param
+
+    for i in range(100):
+        step(i)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for i in range(500):
+        step(i)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - start) / 500
+    print(f"[step] stl={stl} host_ms_per_step={per_step * 1e3:.4f} "
+          f"steps_per_s={1 / per_step:.2f}", flush=True)
+
+    ms = cuda_ms(lambda: objective.value_and_grad(state["param"], generator), 50)
+    print(f"[elbo_grad] stl={stl} ms={ms:.4f} ms_per_1k_draws={ms / S * 1000:.4f}",
+          flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for i in range(20):
+            step(i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    averages = prof.key_averages()
+    # operator rows repeat their kernels' time: sum the device's own rows
+    device_ms = sum(k.self_device_time_total for k in averages
+                    if k.device_type == DeviceType.CUDA) / 1e3 / 20
+    print(f"[profile] stl={stl} steps=20 wall_ms={wall_ms:.3f} "
+          f"device_ms_per_step={device_ms:.4f} "
+          f"busy_share={device_ms / (per_step * 1e3):.3f}", flush=True)
+    print(averages.table(sort_by="self_device_time_total", row_limit=14,
+                         max_name_column_width=60), flush=True)
+
+
+def profile_checks(generator):
+    D = DIM + DIM * DIM
+    ring = torch.randn((RING_ROWS, D), device="cuda", generator=generator)
+    k = 2 * RING_ROWS  # a wrapped ring
+    windows = [200, 300, 400, 500, 600]
+    rhat_ms = cuda_ms(lambda: split_rhat_ring_windows(ring, k, windows, GROUP), 10)
+    mean_ms = cuda_ms(lambda: ring_window_mean(ring, k, RING_ROWS, GROUP), 10)
+    start = time.perf_counter()
+    eff, _ = _mcse_check(ring, k, RING_ROWS, None)
+    eff.cpu()
+    first_mcse_s = time.perf_counter() - start
+    mcse_ms = cuda_ms(lambda: _mcse_check(ring, k, RING_ROWS, None), 3)
+    print(f"[check] ring=({RING_ROWS}, {D}) rhat_ms={rhat_ms:.4f} "
+          f"window_mean_ms={mean_ms:.4f} mcse_ms={mcse_ms:.2f} "
+          f"first_mcse_s={first_mcse_s:.4f}", flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("profile_torch_step: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, _ = vt.zoo.logistic_regression(dim=DIM, n_data=N_DATA, device="cuda",
+                                          dtype=torch.float32)
+    approx = vt.FullRankGaussian(DIM, device="cuda", dtype=torch.float32)
+    generator = torch.Generator("cuda").manual_seed(0)
+    for stl in (True, False):
+        profile_estimator(model, approx, generator, stl)
+    profile_checks(generator)
+    print(f"[mem] max_memory_allocated_bytes={torch.cuda.max_memory_allocated()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

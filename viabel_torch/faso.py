@@ -1,0 +1,897 @@
+"""FASO and RAABBVI meta-optimizers (counterpart of ``viabel_tpu/faso.py``;
+reference ``viabel/optimization.py`` FASO 479-633, RAABBVI 635-931;
+Welandawe, Andersen, Vehtari & Huggins, JMLR 2024).
+
+The per-step optimization runs in *segments* of ``k_check`` steps that
+write iterates into a fixed-size ``(R, D)`` history ring on the device;
+the data-dependent control (R-hat window search, MCSE recheck schedule,
+learning-rate decay, termination) runs on the host between segments.
+PyTorch runs eagerly, so a segment is a Python loop of device steps.
+
+R-hat checks are pipelined as in the JAX package: each check is launched
+on the device at once and its ``(K,)`` result copied to pinned host memory
+without blocking; the verdict is read ``check_pipeline`` segments later,
+when the copy has long finished, and convergence is back-dated to the
+check's own iteration.
+
+Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
+``mesh`` (Queue 1 item 13), ``resume_state`` and ``max_time`` (Queue 1
+item 6), RAABBVI's ``init_rmsprop`` (Queue 1 item 7).
+"""
+
+import math
+import time
+from collections import defaultdict, deque
+
+import numpy as np
+import torch
+
+from .families import MFGaussian
+from .hmc import hmc_sample
+from .mc_diagnostics import (ess_and_mcse_windowed, ring_window_mean,
+                             split_rhat_ring_windows)
+from .optimizers import (AveragedRMSProp, Optimizer, RMSProp,
+                         StochasticGradientOptimizer, default_generator)
+from .utils import Timer, not_ported
+
+__all__ = ["FASO", "RAABBVI"]
+
+# indirection so tests can stub the recheck-schedule clock deterministically
+_now = time.perf_counter
+
+#: Device of RAABBVI's weighted-regression HMC (4 chains x 1000 iterations x
+#: 24 leapfrog steps on a 2-3 parameter posterior). Each leapfrog step is a
+#: few dozen tiny tensor operations, so on a GPU the run is bound by kernel
+#: launches; RAABBVI therefore runs it on the host on purpose, not as a
+#: fallback. chip_smoke.py's "hmc" phase times both placements (PERF.md).
+HMC_DEVICE = "cpu"
+
+
+def _clamp_stat(value):
+    """Plateau-tracker entries clamped to a large finite value (an
+    overflowing gate statistic reads as a plateau, as in the JAX package)."""
+    v = float(value)
+    return min(v, 1e300) if math.isfinite(v) else 1e300
+
+
+def _largest_divisor_leq(n, cap):
+    for g in range(min(cap, n), 0, -1):
+        if n % g == 0:
+            return g
+    return 1
+
+
+def _detection_geometry(D, W_min, k_check, ESS_min, rhat_group,
+                        rhat_quantile, rhat_backoff, R_base):
+    """Validate the detection knobs and derive the geometry: check cadence
+    ``k_check``, the ESS floor, the R-hat group granularity ``G`` (a
+    divisor of ``k_check``), the group-quantized ring length ``R`` grown
+    from ``R_base``, and the quantile gate's allowed exceedance count.
+    Returns ``(k_check, ESS_min, G, R, rhat_allowed)``."""
+    k_check = int(W_min if k_check is None else k_check)
+    ESS_min = W_min // 8 if ESS_min is None else ESS_min
+    if rhat_group is not None and (int(rhat_group) <= 0
+                                   or k_check % int(rhat_group) != 0):
+        raise ValueError('"rhat_group" must be a positive divisor of '
+                         'k_check (checks happen at k_check multiples)')
+    G = (int(rhat_group) if rhat_group
+         else _largest_divisor_leq(k_check, max(1, min(64, W_min // 4))))
+    if rhat_quantile is not None and not 0.0 < float(rhat_quantile) < 1.0:
+        raise ValueError('"rhat_quantile" must be in (0, 1)')
+    if rhat_backoff is not None and float(rhat_backoff) <= 1.0:
+        raise ValueError('"rhat_backoff" must be greater than one')
+    R = max(int(R_base), 2 * int(W_min))
+    R = -(-R // G) * G  # round up to whole groups
+    rhat_allowed = (None if rhat_quantile is None
+                    else int((1.0 - float(rhat_quantile)) * D))
+    return k_check, ESS_min, G, R, rhat_allowed
+
+
+def _backoff_adjust(best_stat, check_interval, max_interval,
+                    rhat_backoff, rhat_threshold, rhat_allowed):
+    """The R-hat backoff cadence rule: far from the gate -> double the
+    check interval (capped at one ring length); within the margin -> full
+    cadence. Returns ``(check_interval, pull_next_check_forward)``."""
+    far_gate = float(rhat_backoff) * (
+        rhat_threshold if rhat_allowed is None else max(rhat_allowed, 1))
+    if best_stat > far_gate:
+        return min(check_interval * 2, max_interval), False
+    return 1, True
+
+
+def _candidate_windows(W_min, W_upper, G):
+    """Reference candidates linspace(W_min, 0.95k, 5), quantized to even
+    multiples of ``2 * G`` so every half-chain boundary lands on a group."""
+    cand = np.linspace(W_min, W_upper, num=5)
+    half = np.ceil(cand / (2 * G)).astype(int) * G
+    half = np.clip(half, G, (W_upper // (2 * G)) * G)
+    return np.unique(2 * half)
+
+
+def _recheck_scale(relative_opt_time, relative_mcse_time):
+    """Cost-aware MCSE recheck growth factor (reference 601-605)."""
+    ratio = relative_opt_time / max(relative_mcse_time, 1e-12)
+    return max(1.05, 1.0 + 1.0 / math.sqrt(1.0 + ratio))
+
+
+def _mcse_check(ring, t, w, mf_dim, chunk=8192):
+    """Windowed per-coordinate (ESS, MCSE) with the reference's MFGaussian
+    scaling and constant-coordinate handling (optimization.py:575-592).
+
+    For MFGaussian, ``mcse_mean = mcse_mu / exp(mean log_sigma)``;
+    constant coordinates (zero last-step difference) get ``ess = +inf,
+    mcse = 0``. The ring's columns are streamed ``chunk`` at a time, each
+    chunk gathered oldest-first over the window only, so the peak extra
+    memory is one ``(w, chunk)`` slab and its FFT, not a reordered copy of
+    the whole ring.
+    """
+    R, D = ring.shape
+    t, w = int(t), int(w)
+    idx = torch.as_tensor([(t - w + j) % R for j in range(w)],
+                          device=ring.device)
+    effs, mcses, means, diffs = [], [], [], []
+    for c0 in range(0, D, chunk):
+        ordered = ring[idx, c0:c0 + chunk]
+        eff_c, mcse_c = ess_and_mcse_windowed(ordered, w, chunk_size=chunk)
+        effs.append(eff_c)
+        mcses.append(mcse_c)
+        means.append(ordered.sum(dim=0) / w)
+        diffs.append(ordered[w - 2] - ordered[w - 1])
+    eff, mcse, mean_w, diff = (torch.cat(x) for x in (effs, mcses, means, diffs))
+    if mf_dim is not None:
+        # log_sigma coordinates occupy [dim, 2*dim)
+        mcse = torch.cat([mcse[:mf_dim] / torch.exp(mean_w[mf_dim:2 * mf_dim]),
+                          mcse[mf_dim:]])
+    const = diff == 0.0
+    eff = torch.where(const, torch.inf, eff)
+    mcse = torch.where(const, 0.0, mcse)
+    return eff, mcse
+
+
+def _to_host_async(x):
+    """Start a device-to-host copy of a small tensor; returns a handle for
+    :func:`_read_host`."""
+    if x.is_cuda:
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+    return x, None
+
+
+def _read_host(handle):
+    host, event = handle
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
+
+
+class FASO(Optimizer):
+    """Fixed-learning-rate stochastic optimization with convergence
+    detection (reference optimization.py:479-633).
+
+    The parameters are those of :class:`viabel_tpu.FASO` (see its
+    docstring for each knob's measured rationale): ``mcse_threshold``,
+    ``W_min``, ``ESS_min``, ``k_check`` (check cadence and segment
+    length), ``max_history`` (ring rows; ``None`` sizes it to
+    ``n_iters``), ``rhat_threshold``, ``rhat_quantile``, ``rhat_backoff``,
+    ``rhat_group``, ``check_pipeline`` (segments between an R-hat check's
+    dispatch and its read-back; diagnostics mode reads at once),
+    ``mc_escalation``, ``mc_max_samples``, ``mc_patience``,
+    ``mc_plateau_rtol``. ``mesh`` and ``max_time`` are not ported yet.
+
+    Beside the JAX package's results, ``results["rhat_verdicts"]`` lists
+    each R-hat verdict read as ``(k, best_window, statistic, passed)``.
+    """
+
+    def __init__(self, sgo, *, mcse_threshold=0.1, W_min=200, ESS_min=None,
+                 k_check=None, max_history=None, rhat_threshold=1.1,
+                 rhat_quantile=None, rhat_backoff=None, rhat_group=None,
+                 check_pipeline=4, mesh=None, max_time=None,
+                 mc_escalation=None, mc_max_samples=None, mc_patience=3,
+                 mc_plateau_rtol=0.05):
+        if not isinstance(sgo, StochasticGradientOptimizer):
+            raise ValueError("sgo must be a subclass of StochasticGradientOptimizer")
+        if mesh is not None:
+            raise not_ported("FASO(mesh=...)", 13)
+        if max_time is not None:
+            raise not_ported("FASO(max_time=...)", 6)
+        self._sgo = sgo
+        self._mcse_threshold = float(mcse_threshold)
+        self._W_min = int(W_min)
+        self._ESS_min = W_min // 8 if ESS_min is None else ESS_min
+        self._k_check = int(W_min if k_check is None else k_check)
+        self._max_history = max_history
+        self._rhat_threshold = float(rhat_threshold)
+        self._rhat_quantile = None if rhat_quantile is None else float(rhat_quantile)
+        self._rhat_backoff = None if rhat_backoff is None else float(rhat_backoff)
+        self._rhat_group = int(rhat_group) if rhat_group else None
+        self._check_pipeline = int(check_pipeline)
+        self._mc_escalation = (None if mc_escalation is None
+                               else float(mc_escalation))
+        self._mc_max_samples = (None if mc_max_samples is None
+                                else int(mc_max_samples))
+        self._mc_patience = int(mc_patience)
+        self._mc_plateau_rtol = float(mc_plateau_rtol)
+        if self._mc_escalation is not None and self._mc_escalation <= 1.0:
+            raise ValueError('"mc_escalation" must be greater than one')
+        if self._mc_max_samples is not None and self._mc_max_samples <= 0:
+            raise ValueError('"mc_max_samples" must be positive')
+        if self._mc_patience < 2:
+            raise ValueError('"mc_patience" must be at least two')
+        if self._mc_plateau_rtol <= 0.0:
+            raise ValueError('"mc_plateau_rtol" must be greater than zero')
+        if self._check_pipeline < 0:
+            raise ValueError('"check_pipeline" must be non-negative')
+        if mcse_threshold <= 0:
+            raise ValueError('"mcse_threshold" must be greater than zero')
+        if W_min <= 0:
+            raise ValueError('"W_min" must be greater than zero')
+        if self._k_check <= 0:
+            raise ValueError('"k_check" must be greater than zero')
+        if self._ESS_min <= 0:
+            raise ValueError('"ESS_min" must be greater than zero')
+        # shared validation of rhat_quantile / rhat_backoff / rhat_group
+        _detection_geometry(1, self._W_min, self._k_check, self._ESS_min,
+                            self._rhat_group, self._rhat_quantile,
+                            self._rhat_backoff, 1)
+
+    def _run_segment(self, objective, var_param, opt_state, generator, ring,
+                     t, lr, steps, diagnostics):
+        """``steps`` optimizer steps, each iterate written to ring slot
+        ``t % R``. Returns the carry and the segment's outputs (values,
+        and per-step gradients and directions on the host in diagnostics
+        mode)."""
+        R = ring.shape[0]
+        values, grads, dirs = [], [], []
+        for _ in range(steps):
+            var_param, opt_state, value, direction, grad = self._sgo.step(
+                objective, var_param, opt_state, generator, lr)
+            ring[t % R] = var_param
+            t += 1
+            values.append(value)
+            if diagnostics:
+                grads.append(grad)
+                dirs.append(direction)
+        outs = (torch.stack(values),)
+        if diagnostics:
+            outs += (torch.stack(grads).cpu().numpy(),
+                     torch.stack(dirs).cpu().numpy())
+        return var_param, opt_state, t, outs
+
+    def optimize(self, n_iters, objective, init_param, generator=None,
+                 init_opt_state=None, resume_state=None,
+                 progress_callback=None, learning_rate=None,
+                 mcse_threshold=None, max_time=None):
+        """Run FASO.
+
+        ``progress_callback(k, avg_loss)`` is invoked at each segment
+        boundary. ``learning_rate`` / ``mcse_threshold`` override the
+        constructor values for this run only (RAABBVI threads its
+        per-round decayed values through them).
+        """
+        if resume_state is not None:
+            raise not_ported("FASO resume_state", 6)
+        if max_time is not None:
+            raise not_ported("FASO max_time", 6)
+        n_iters = int(n_iters)
+        mcse_threshold = (self._mcse_threshold if mcse_threshold is None
+                          else float(mcse_threshold))
+        diagnostics = self._sgo._diagnostics
+        mf_dim = (objective.approx.dim
+                  if isinstance(getattr(objective, "approx", None), MFGaussian)
+                  else None)
+
+        var_param = init_param.detach().clone()
+        if generator is None:
+            generator = default_generator(var_param.device)
+        D = var_param.shape[0]
+        _, _, G, R, rhat_allowed = _detection_geometry(
+            D, self._W_min, self._k_check, self._ESS_min, self._rhat_group,
+            self._rhat_quantile, self._rhat_backoff,
+            int(self._max_history) if self._max_history else max(n_iters, 2))
+        ring = torch.zeros((R, D), dtype=var_param.dtype, device=var_param.device)
+        opt_state = (self._sgo.init_state(var_param)
+                     if init_opt_state is None else init_opt_state)
+        t = 0
+        lr = float(self._sgo._learning_rate if learning_rate is None
+                   else learning_rate)
+
+        mc_escalation = self._mc_escalation
+        mc_max = None
+        if mc_escalation is not None:
+            S0 = getattr(objective, "num_mc_samples", None)
+            if S0 is None:
+                raise ValueError(
+                    "mc_escalation needs an objective exposing a settable "
+                    "num_mc_samples (got {})".format(type(objective).__name__))
+            mc_max = (self._mc_max_samples if self._mc_max_samples is not None
+                      else 40 * int(S0))
+        mc_plateau = []       # failing R-hat stats since the last escalation
+        mc_plateau_mcse = []  # failing ring-capped MCSE/ESS gate ratios
+        mc_events = []        # (iteration, new_S) escalation records
+        mc_escalated_at = -1
+
+        history = defaultdict(list)
+        iterate_average = var_param
+        if diagnostics:
+            history["iterate_average_k_history"].append(0)
+            history["iterate_average_history"].append(iterate_average)
+
+        k = 0
+        k_conv = None   # iteration when stationarity was reached (back-dated)
+        k_Rhat = None   # iteration when the R-hat criterion was met
+        k_stopped = None
+        W_check = None
+        last_best_W = None  # best R-hat window at the most recent check
+        eff = mcse = None
+        # adaptive check cadence (rhat_backoff; interval in k_check units);
+        # interval_adjusted_at limits doubling to once per verdict
+        # dispatched under the current schedule
+        check_interval = 1
+        next_check_at = 0
+        interval_adjusted_at = -1
+
+        # fixed-lr segments are identical whatever a pending R-hat check
+        # concludes, so verdicts are read `pipeline` segments after their
+        # dispatch; diagnostics mode reads them at once so per-check
+        # histories match the reference exactly
+        pipeline = 0 if diagnostics else self._check_pipeline
+        max_interval = max(1, R // self._k_check)
+        pending = deque()
+        mcse_time_total = 0.0
+        loop_start = _now()
+
+        def process_check(ck):
+            nonlocal k_Rhat, k_conv, W_check, last_best_W, iterate_average
+            nonlocal check_interval, next_check_at, interval_adjusted_at
+            ck_k = int(ck["k"])
+            r_hats = _read_host(ck["r_hats"])
+            best = int(np.argmin(r_hats))
+            best_W = int(ck["windows"][best])
+            last_best_W = best_W
+            if self._rhat_backoff is not None and ck_k > interval_adjusted_at:
+                check_interval, pull = _backoff_adjust(
+                    r_hats[best], check_interval, max_interval,
+                    self._rhat_backoff, self._rhat_threshold, rhat_allowed)
+                if pull:
+                    next_check_at = 0
+                interval_adjusted_at = k
+            # max mode: r_hats are max-R-hat values, gated by threshold;
+            # quantile mode: above-threshold coordinate counts
+            passed = bool(r_hats[best] <= (self._rhat_threshold
+                                           if rhat_allowed is None
+                                           else rhat_allowed))
+            history["rhat_verdicts"].append(
+                (ck_k, best_W, float(r_hats[best]), passed))
+            if diagnostics or passed:
+                # the average covers [ck.k - best_W, k): what a synchronous
+                # check at k would produce after back-dating
+                w_eff = min(best_W + (k - ck_k), R, k)
+                iterate_average = ring_window_mean(ring, t, w_eff, G)
+            if diagnostics:
+                history["iterate_average_k_history"].append(ck_k)
+                history["iterate_average_history"].append(iterate_average)
+            if passed:
+                k_Rhat = ck_k
+                k_conv = ck_k - best_W
+                W_check = best_W  # immediately check MCSE
+            elif (mc_escalation is not None and ck_k > mc_escalated_at
+                    and int(objective.num_mc_samples) < mc_max):
+                # gradient-SNR escalation: the gate is failing and the best
+                # statistic has stopped improving (verdicts dispatched
+                # before the last escalation may pass but never trigger)
+                mc_plateau.append(_clamp_stat(r_hats[best]))
+                if _plateaued(mc_plateau):
+                    escalate(mc_plateau[-1])
+            return passed
+
+        def _plateaued(stats):
+            if len(stats) < self._mc_patience:
+                return False
+            w = stats[-self._mc_patience:]
+            return w[0] - w[-1] < self._mc_plateau_rtol * abs(w[0])
+
+        def escalate(stat):
+            nonlocal mc_escalated_at, check_interval
+            nonlocal next_check_at, interval_adjusted_at, W_check
+            new_S = min(int(math.ceil(objective.num_mc_samples
+                                      * mc_escalation)), mc_max)
+            objective.num_mc_samples = new_S
+            mc_escalated_at = k
+            mc_events.append((k, new_S))
+            mc_plateau.clear()
+            mc_plateau_mcse.clear()
+            # watch the new noise regime at full cadence
+            check_interval = 1
+            next_check_at = 0
+            interval_adjusted_at = k
+            if k_conv is not None:
+                # the MCSE recheck schedule was calibrated to the old noise
+                # regime: recheck one W_min after the escalation instead
+                W_check = (k - k_conv) + self._W_min
+            print("MC escalation: convergence gate stalled at {:.3g}; "
+                  "num_mc_samples -> {} at iteration {}".format(
+                      float(stat), new_S, k))
+
+        while k < n_iters:
+            # segments stay aligned to the k_check grid
+            steps = min(self._k_check - (k % self._k_check), n_iters - k)
+            var_param, opt_state, t, outs = self._run_segment(
+                objective, var_param, opt_state, generator, ring, t, lr,
+                steps, diagnostics)
+            k += steps
+            history["value_history"].append(outs[0])
+            if diagnostics:
+                history["grad_history"].append(outs[1])
+                history["descent_dir_history"].append(outs[2])
+            if progress_callback is not None:
+                progress_callback(k, float(outs[0].mean()))
+
+            # R-hat convergence check (reference optimization.py:550-563):
+            # launch the one-ring-read statistic now, read the verdict
+            # `pipeline` segments later
+            if k_conv is None and k % self._k_check == 0 and k >= next_check_at:
+                W_upper = min(int(0.95 * k), R)
+                if W_upper > self._W_min and W_upper >= 2 * G:
+                    next_check_at = k + self._k_check * check_interval
+                    windows = _candidate_windows(self._W_min, W_upper, G)
+                    r_hats = split_rhat_ring_windows(
+                        ring, t, windows, G,
+                        exceed_threshold=(None if rhat_allowed is None
+                                          else self._rhat_threshold))
+                    pending.append({"k": k, "windows": windows,
+                                    "r_hats": _to_host_async(r_hats)})
+            # read verdicts at least `pipeline` segments old (by dispatch
+            # age, so a backed-off schedule doesn't stretch the lag)
+            while pending and k - int(pending[0]["k"]) >= pipeline * self._k_check:
+                if process_check(pending.popleft()):
+                    pending.clear()
+                    break
+
+            # MCSE / ESS stopping check (reference optimization.py:566-605)
+            if k_conv is not None and k - k_conv >= W_check:
+                W = min(k - k_conv, R, k)
+                iterate_average = ring_window_mean(ring, t, W, G)
+                if diagnostics and (not history["iterate_average_k_history"]
+                                    or history["iterate_average_k_history"][-1] != k):
+                    history["iterate_average_k_history"].append(k)
+                    history["iterate_average_history"].append(iterate_average)
+                with Timer() as mcse_timer:
+                    eff, mcse = _mcse_check(ring, t, W, mf_dim)
+                    eff = eff.cpu().numpy()
+                    mcse = mcse.cpu().numpy()
+                mcse_time_total += mcse_timer.interval
+                if diagnostics:
+                    history["ess_and_mcse_k_history"].append(k)
+                    history["ess_history"].append(eff)
+                    history["mcse_history"].append(mcse)
+                if self._rhat_quantile is None:
+                    mcse_stat = float(np.max(mcse))
+                    ess_stat = float(np.min(eff))
+                else:
+                    q = self._rhat_quantile
+                    mcse_stat = float(np.quantile(mcse, q))
+                    ess_stat = float(np.quantile(eff, 1.0 - q))
+                if mcse_stat < mcse_threshold and ess_stat > self._ESS_min:
+                    k_stopped = k
+                    break
+                if (mc_escalation is not None and W >= R
+                        and int(objective.num_mc_samples) < mc_max):
+                    # the averaging window is ring-capped: a stalled
+                    # MCSE/ESS gate here is a gradient-SNR wall like a
+                    # stalled R-hat gate (evaluated after the recheck
+                    # growth below, so its recheck reset wins)
+                    mc_plateau_mcse.append(_clamp_stat(
+                        max(mcse_stat / mcse_threshold,
+                            self._ESS_min / max(ess_stat, 1e-300))))
+                # cost-aware recheck growth (reference 601-605);
+                # optimization time is wall-clock minus check time
+                total_opt_time = max(_now() - loop_start - mcse_time_total, 1e-9)
+                W_check = int(_recheck_scale(total_opt_time / k,
+                                             mcse_timer.interval / W)
+                              * W_check + 1)
+                if _plateaued(mc_plateau_mcse):
+                    escalate(mc_plateau_mcse[-1])
+
+        while pending:
+            if process_check(pending.popleft()):
+                pending.clear()
+
+        if k_conv is None and last_best_W is not None and not diagnostics:
+            # R-hat never passed and the per-check average was deferred:
+            # compute the best-window average once so opt_param matches
+            # the reference (optimization.py:556, 632)
+            iterate_average = ring_window_mean(ring, t, last_best_W, G)
+
+        if k_stopped is not None:
+            print("Convergence reached at iteration", k_stopped)
+        elif k_conv is None:
+            print("WARNING: stationarity not reached after maximum number "
+                  "of iterations")
+            print("WARNING: consider raising the learning rate or the "
+                  "maximum number of iterations")
+        else:
+            print("WARNING: stationarity reached but MCSE too large and/or "
+                  "ESS too small")
+            if mcse is not None:
+                print("WARNING: maximum MCSE = {:.3g}".format(np.max(mcse)))
+                print("WARNING: minimum ESS = {:.1f}".format(np.min(eff)))
+
+        results = {}
+        for name, h in history.items():
+            if name == "value_history":
+                results[name] = torch.cat(h)
+            elif name in ("grad_history", "descent_dir_history"):
+                results[name] = np.concatenate(h)
+            elif name == "iterate_average_history":
+                results[name] = torch.stack(h)
+            elif name == "rhat_verdicts":
+                results[name] = h
+            else:
+                results[name] = np.asarray(h)
+        results.setdefault("rhat_verdicts", [])
+        results["k_conv"] = k_conv
+        results["k_Rhat"] = k_Rhat
+        results["k_stopped"] = k_stopped
+        if mc_escalation is not None:
+            results["mc_escalation_history"] = np.asarray(
+                mc_events, dtype=np.int64).reshape(-1, 2)
+        results["opt_param"] = iterate_average
+        results["opt_state"] = opt_state
+        return results
+
+
+def _wlr_general(theta, data):
+    """Posterior of the reference's weighted_lin_regression.stan (kappa
+    free) and its gradient, batched over chains: ``y ~ N(log_c + 2
+    log(rho^{-kappa} - 1) + 2 kappa x, sigma)`` with per-observation
+    weights; kappa ~ U(0,1) (logit transform), log_c ~ Cauchy(0,10),
+    sigma ~ HalfCauchy(0,10). ``theta``: ``(C, 3)`` rows ``(logit kappa,
+    log_c, log_sigma)``. Returns ``((C,), (C, 3))``."""
+    y, x, w, rho = data
+    kappa_logit, log_c, log_sigma = theta.unbind(1)
+    kappa = torch.sigmoid(kappa_logit)
+    inv_sigma = torch.exp(-log_sigma)
+    r_m1 = torch.expm1(-math.log(rho) * kappa)           # rho^-kappa - 1
+    mu = torch.addcmul((log_c + 2.0 * torch.log(r_m1))[:, None],
+                       2.0 * kappa[:, None], x)
+    e = (y - mu) * inv_sigma[:, None]
+    we = w * e
+    wee = torch.sum(we * e, dim=1)
+    wsum = torch.sum(w)
+    c2 = (0.1 * log_c) ** 2
+    s2 = (0.1 / inv_sigma) ** 2
+    lp = (-0.5 * wee - wsum * log_sigma
+          + torch.log(kappa) + torch.log1p(-kappa)        # U(0,1) + jacobian
+          - torch.log1p(c2)                               # Cauchy(0,10)
+          - torch.log1p(s2) + log_sigma)                  # HalfCauchy + jac.
+    g_mu = we * inv_sigma[:, None]                        # d loglik / d mu
+    sum_g = torch.sum(g_mu, dim=1)
+    # d mu / d kappa = -2 log(rho) rho^-kappa / (rho^-kappa - 1) + 2 x
+    dlik_dkappa = (sum_g * (-2.0 * math.log(rho)) * (r_m1 + 1.0) / r_m1
+                   + 2.0 * (g_mu @ x))
+    grad = torch.stack([
+        dlik_dkappa * kappa * (1.0 - kappa) + 1.0 - 2.0 * kappa,
+        sum_g - 0.02 * log_c / (1.0 + c2),
+        wee - wsum - 2.0 * s2 / (1.0 + s2) + 1.0], dim=1)
+    return lp, grad
+
+
+def _wlr_averaged(theta, data):
+    """kappa == 1 variant (weighted_lin_regression_sgd.stan) and its
+    gradient; ``theta``: ``(C, 2)`` rows ``(log_c, log_sigma)``."""
+    y, x, w, rho = data
+    log_c, log_sigma = theta.unbind(1)
+    inv_sigma = torch.exp(-log_sigma)
+    mu = (log_c + 2.0 * math.log(1.0 / rho - 1.0))[:, None] + 2.0 * x
+    e = (y - mu) * inv_sigma[:, None]
+    we = w * e
+    wee = torch.sum(we * e, dim=1)
+    wsum = torch.sum(w)
+    c2 = (0.1 * log_c) ** 2
+    s2 = (0.1 / inv_sigma) ** 2
+    lp = (-0.5 * wee - wsum * log_sigma - torch.log1p(c2)
+          - torch.log1p(s2) + log_sigma)
+    grad = torch.stack([
+        torch.sum(we * inv_sigma[:, None], dim=1) - 0.02 * log_c / (1.0 + c2),
+        wee - wsum - 2.0 * s2 / (1.0 + s2) + 1.0], dim=1)
+    return lp, grad
+
+
+class RAABBVI(FASO):
+    """Robust, automated, and accurate BBVI (reference optimization.py:635-931).
+
+    Wraps FASO rounds at geometrically decaying learning rates; terminates
+    when the predicted benefit of a further decay (symmetrized-KL gap,
+    estimated by Bayesian weighted regression of ``log SKL`` on ``log lr``)
+    no longer justifies the predicted iteration cost.
+    """
+
+    def __init__(self, sgo, *, rho=0.5, iters0=1000, accuracy_threshold=0.1,
+                 inefficiency_threshold=1.0, init_rmsprop=False, **kwargs):
+        if init_rmsprop:
+            raise not_ported("RAABBVI(init_rmsprop=True)", 7)
+        super().__init__(sgo, **kwargs)
+        self._iters0 = int(iters0)
+        self._rho = float(rho)
+        self._accuracy_threshold = float(accuracy_threshold)
+        self._inefficiency_threshold = float(inefficiency_threshold)
+        if rho < 0 or rho > 1:
+            raise ValueError('"rho" must be between zero and one')
+
+    def _averaged_sgo(self):
+        return isinstance(self._sgo, AveragedRMSProp)
+
+    def weighted_linear_regression(self, y, x, s=9.0, a=0.25, n_chains=4,
+                                   generator=None, device=HMC_DEVICE):
+        """Bayesian weighted regression of ``log SKL`` on ``log lr``
+        (the reference's Stan programs, sampled with :func:`hmc_sample`):
+        weights ``w_n = 1/(1 + rev_idx^2/s)^a`` (reference
+        optimization.py:711). ``generator`` must lie on ``device``.
+
+        Returns ``(fit_samples_dict, kappa, c)``.
+        """
+        if generator is None:
+            generator = default_generator(device)
+        y = torch.as_tensor(np.asarray(y, dtype=float), device=device)
+        x = torch.as_tensor(np.asarray(x, dtype=float), device=device)
+        N = y.shape[0]
+        w = 1.0 / (1.0 + torch.arange(N - 1, -1, -1, dtype=y.dtype,
+                                      device=device) ** 2 / s) ** a
+        data = (y, x, w, self._rho)
+        mean_y = float(np.mean(y.cpu().numpy()))
+        if self._averaged_sgo():
+            log_prob = _wlr_averaged
+            init = [mean_y, 0.0]
+        else:
+            log_prob = _wlr_general
+            kappa0 = 0.8
+            log_c0 = (mean_y - 2.0 * math.log(self._rho ** (-kappa0) - 1.0)
+                      - 2.0 * kappa0 * float(x.mean()))
+            init = [math.log(kappa0 / (1 - kappa0)), log_c0, 0.0]
+        init = torch.tensor(init, dtype=y.dtype, device=device).repeat(n_chains, 1)
+        samples = hmc_sample(log_prob, init, generator, data=data)
+        flat = samples.reshape(-1, samples.shape[-1])
+        if self._averaged_sgo():
+            fit = {"log_c": flat[:, 0], "sigma": torch.exp(flat[:, 1])}
+            kappa = 1.0
+        else:
+            fit = {"kappa": torch.sigmoid(flat[:, 0]), "log_c": flat[:, 1],
+                   "sigma": torch.exp(flat[:, 2])}
+            kappa = float(fit["kappa"].mean())
+        log_c = float(fit["log_c"].mean())
+        return fit, kappa, float(np.exp(log_c))
+
+    @staticmethod
+    def wls(x, y, s=9.0, a=0.25):
+        """Closed-form weighted least squares (reference optimization.py:728-755)."""
+        x = np.asarray(x, dtype=float)
+        y = np.asarray(y, dtype=float)
+        n = y.size
+        X = np.column_stack((np.ones(n), x))
+        w = 1.0 / (1.0 + np.arange(n)[::-1] ** 2 / s**2) ** a
+        XtW = X.T * w
+        beta = np.linalg.solve(XtW @ X, XtW @ y)
+        return beta[0], beta[1]
+
+    @staticmethod
+    def convg_iteration_trend_detection(slope):
+        """Negative lr-vs-iterations trend? (reference optimization.py:757-776)."""
+        return slope < 0
+
+    def skl_round_update(self, approx, avg_prev, avg_curr, *, skl_hist,
+                         lr_hist, conv_iters, kappa_hist, c_hist, pred_hist,
+                         crt_hist, generator):
+        """One round's SKL bookkeeping and the inefficiency termination
+        rule (reference optimization.py:868-913). Appends to the caller's
+        history lists in place; returns ``(fit, terminated, relative_skl,
+        relative_iters)``."""
+        skl = float(approx.kl(avg_prev, avg_curr) + approx.kl(avg_curr, avg_prev))
+        skl_hist.append(skl)
+        fit, kappa, c = self.weighted_linear_regression(
+            np.log(np.asarray(skl_hist)), np.log(np.asarray(lr_hist)),
+            generator=generator, device=generator.device)
+        kappa_hist.append(kappa)
+        c_hist.append(c)
+        terminated = False
+        relative_skl = relative_iters = None
+        if len(lr_hist) > 1 and conv_iters:
+            lrs = np.asarray(lr_hist, dtype=float)
+            convs = np.asarray(conv_iters, dtype=float)
+            relative_skl = (self._rho**kappa + self._accuracy_threshold
+                            / (np.sqrt(c) * lrs[-1] ** kappa))
+            curr_iters = convs[-1]
+            _, slope = self.wls(np.log(lrs[-len(convs):]), np.log(convs))
+            if self.convg_iteration_trend_detection(slope):
+                y_wls, x_wls = convs, lrs[-len(convs):]
+            else:
+                y_wls, x_wls = convs[1:], lrs[-len(convs):][1:]
+            if len(y_wls) >= 2:
+                b0, b1 = self.wls(np.log(x_wls), np.log(y_wls))
+                pred_iters = int(np.exp(b0) * (self._rho * lrs[-1]) ** b1)
+                pred_hist.append(pred_iters)
+                relative_iters = pred_iters / (curr_iters + self._iters0)
+                crt_hist.append(relative_skl * relative_iters)
+                terminated = (relative_skl * relative_iters
+                              > self._inefficiency_threshold)
+        return fit, terminated, relative_skl, relative_iters
+
+    def optimize(self, K_max, objective, init_param, generator=None,
+                 progress_callback=None, resume_state=None, max_time=None):
+        """Run RAABBVI. ``progress_callback(k, avg_loss)`` fires at every
+        inner-FASO segment boundary with ``k`` counted across rounds.
+
+        The weighted regression's HMC draws from its own generator on
+        :data:`HMC_DEVICE`, seeded from ``generator``'s initial seed.
+        """
+        if resume_state is not None:
+            raise not_ported("RAABBVI resume_state", 7)
+        if max_time is not None:
+            raise not_ported("RAABBVI max_time", 7)
+        if generator is None:
+            generator = default_generator(init_param.device)
+        if not objective.approx.supports_kl:
+            print("WARNING: approximation family does not support KL. "
+                  "Using FASO.", flush=True)
+            return super().optimize(K_max, objective, init_param,
+                                    generator=generator,
+                                    progress_callback=progress_callback)
+        hmc_generator = torch.Generator(HMC_DEVICE).manual_seed(
+            generator.initial_seed())
+
+        K_max = int(K_max)
+        k_new = -1        # iterations used at the current learning rate
+        k = 0             # number of learning-rate decays
+        k_total = 0       # total iterations across rounds
+        k_add = 0
+        k_stopped_final = None
+        sgo = self._sgo
+        diagnostics = sgo._diagnostics
+        averaged = self._averaged_sgo()
+        # explicit per-round state: rounds carry their own lr / threshold,
+        # so repeated optimize() calls on one RAABBVI behave identically
+        lr_round = sgo._learning_rate
+        mcse_round = self._mcse_threshold
+        iterate_average_curr = init_param.detach().clone()
+        opt_state = None
+        steps_run_total = 0
+        history = defaultdict(list)
+        history["iterate_average_curr_hist"].append(iterate_average_curr)
+        history["k_mcse"].append(0)
+        stopped = False
+        relative_skl = relative_iters = None
+        # cumulative (iteration, new_S) escalation events across rounds: the
+        # climbed num_mc_samples persists on the shared objective
+        mc_events_outer = []
+
+        while not stopped:
+            K_max -= (k_new + 1)
+            if K_max <= 0:
+                break
+            iterate_average_prev = iterate_average_curr
+            round_steps_offset = steps_run_total
+            round_cb = None
+            if progress_callback is not None:
+                round_cb = (lambda kk, loss, _off=steps_run_total:
+                            progress_callback(_off + kk, loss))
+            opt = super().optimize(K_max, objective, iterate_average_curr,
+                                   generator=generator, init_opt_state=opt_state,
+                                   learning_rate=lr_round,
+                                   mcse_threshold=mcse_round,
+                                   progress_callback=round_cb)
+            if not averaged:
+                # persist non-averaged SGO state across rounds (the
+                # reference only resets averaged SGOs, 865-866)
+                opt_state = opt["opt_state"]
+            steps_run_total += int(opt["value_history"].shape[0])
+            if opt["k_stopped"] is not None and k != 0:
+                history["conv_iters_hist"].append(opt["k_stopped"])
+            iterate_average_curr = opt["opt_param"]
+            history["iterate_average_curr_hist"].append(iterate_average_curr)
+            history["rhat_verdicts"].append(opt["rhat_verdicts"])
+            k_new = opt["k_stopped"]
+            if len(opt.get("mc_escalation_history", ())):
+                mc_events_outer.extend(
+                    (int(ev_k) + round_steps_offset, int(ev_S))
+                    for ev_k, ev_S in opt["mc_escalation_history"])
+
+            history["k_Rhat"].append(
+                opt["k_Rhat"] + k_add
+                if opt["k_Rhat"] is not None and k_new is not None
+                else opt["k_Rhat"])
+            history["k_conv"].append(
+                opt["k_conv"] + k_add
+                if opt["k_conv"] is not None and k_new is not None
+                else opt["k_conv"])
+            history["k_mcse"].append(k_new + k_add if k_new is not None else k_new)
+            history["value_history"].append(opt["value_history"])
+            if diagnostics:
+                history["grad_history"].append(opt["grad_history"])
+                history["descent_dir_history"].append(opt["descent_dir_history"])
+                if opt["k_conv"] is not None and "ess_history" in opt:
+                    history["ess_history"].extend(opt["ess_history"])
+                    history["mcse_history"].extend(opt["mcse_history"])
+                    history["final_mcse_history"].append(opt["mcse_history"][-1])
+                if "iterate_average_k_history" in opt:
+                    offsets = np.asarray(opt["iterate_average_k_history"])
+                    averages = list(opt["iterate_average_history"])
+                    if k > 0:
+                        offsets = offsets[1:] + k_add
+                        averages = averages[1:]
+                    history["iterate_average_history"].extend(averages)
+                    history["iterate_average_k_history"].extend(offsets.tolist())
+            if history["iterate_average_k_history"]:
+                k_add = history["iterate_average_k_history"][-1]
+
+            if k_new is None:  # maximum iterations reached mid-round
+                break
+
+            # learning-rate decay and threshold tightening (reference 862-866)
+            k_total += k_new
+            lr_round *= self._rho
+            mcse_round *= self._rho
+
+            if len(history["learning_rate_hist"]) > 0:
+                fit, terminated, relative_skl, relative_iters = \
+                    self.skl_round_update(
+                        objective.approx, iterate_average_prev,
+                        iterate_average_curr,
+                        skl_hist=history["SKL_history"],
+                        lr_hist=history["learning_rate_hist"],
+                        conv_iters=history["conv_iters_hist"],
+                        kappa_hist=history["kappa_hist"],
+                        c_hist=history["c_hist"],
+                        pred_hist=history["predicted_iters_hist"],
+                        crt_hist=history["stopping_crt"],
+                        generator=hmc_generator)
+                if diagnostics:
+                    history["c_sample_hist"].append(
+                        np.exp(fit["log_c"].cpu().numpy()))
+                    if averaged:
+                        history["kappa_sample_hist"] = None
+                    else:
+                        history["kappa_sample_hist"].append(
+                            fit["kappa"].cpu().numpy())
+                if terminated:
+                    stopped = True
+                    k_stopped_final = k_total
+                    history["k_stopped_final_hist"].append(k_total)
+                    break
+
+            history["learning_rate_hist"].append(lr_round)
+            k += 1
+
+        if stopped:
+            print("Termination rule reached at iteration", k_total)
+            print("Inefficiency Index:", relative_skl * relative_iters)
+        else:
+            print("WARNING: maximum number of iterations reached before "
+                  "stopping rule was triggered")
+
+        results = {}
+        for name, h in history.items():
+            if name in ("k_Rhat", "k_mcse", "k_conv"):
+                continue
+            if name == "value_history" and h:
+                results[name] = torch.cat(h)
+            elif name in ("grad_history", "descent_dir_history") and h:
+                results[name] = np.concatenate(h)
+            elif name in ("iterate_average_curr_hist", "iterate_average_history"):
+                results[name] = torch.stack(h)
+            elif h is not None:
+                # scalar histories become arrays; ragged ones stay lists
+                if isinstance(h, list) and h and np.isscalar(h[0]):
+                    results[name] = np.asarray(h)
+                else:
+                    results[name] = h
+        results["opt_param"] = iterate_average_curr
+        results["k_stopped_final"] = k_stopped_final
+        if self._mc_escalation is not None:
+            results["mc_escalation_history"] = np.asarray(
+                mc_events_outer, dtype=np.int64).reshape(-1, 2)
+        results["k_Rhat"] = history["k_Rhat"]
+        results["k_mcse"] = history["k_mcse"]
+        results["k_conv"] = history["k_conv"]
+        return results

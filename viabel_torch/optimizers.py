@@ -1,0 +1,153 @@
+"""Stochastic-gradient step rules (counterpart of ``viabel_tpu/optimizers.py``).
+
+Each rule is a pure ``(grad, state) -> (descent_dir, state)`` function
+with an explicit ``init_state``; ``optimize`` runs the fixed-learning-rate
+loop eagerly, one step per Python iteration. The iterate average is kept
+in a ``(window, D)`` ring tensor.
+"""
+
+import torch
+
+from .utils import deferred_names
+
+__all__ = ["Optimizer", "StochasticGradientOptimizer", "RMSProp",
+           "AveragedRMSProp"]
+
+#: step rules of the JAX package not ported yet, by ROADMAP.md item
+NOT_PORTED = {"Adam": 4, "AveragedAdam": 4, "Adagrad": 4, "WindowedAdagrad": 4}
+__getattr__ = deferred_names(__name__, NOT_PORTED)
+
+
+def default_generator(device):
+    """The generator used when a caller passes none (seed 0, like the JAX
+    package's ``PRNGKey(0)`` default)."""
+    return torch.Generator(device).manual_seed(0)
+
+
+class Optimizer:
+    """Abstract optimizer."""
+
+    def optimize(self, n_iters, objective, init_param, generator=None):
+        """Run optimization; returns a dict containing at least ``opt_param``."""
+        raise NotImplementedError()
+
+
+class StochasticGradientOptimizer(Optimizer):
+    """Fixed-learning-rate SGD with iterate averaging."""
+
+    def __init__(self, learning_rate, *, weight_decay=0.0, iterate_avg_prop=0.2,
+                 diagnostics=False):
+        self._learning_rate = float(learning_rate)
+        self._weight_decay = float(weight_decay)
+        if iterate_avg_prop is not None and (iterate_avg_prop > 1.0
+                                             or iterate_avg_prop <= 0.0):
+            raise ValueError('"iterate_avg_prop" must be None or between 0 and 1')
+        self._iterate_avg_prop = iterate_avg_prop
+        self._diagnostics = diagnostics
+
+    def init_state(self, var_param):
+        """Initial optimizer state."""
+        return {}
+
+    def descent_direction(self, grad, state):
+        """Pure step rule: ``(grad, state) -> (descent_dir, new_state)``."""
+        return grad, state
+
+    def step(self, objective, var_param, state, generator, learning_rate):
+        """One step: ``(var_param, state, value, direction, grad)``."""
+        value, grad = objective.value_and_grad(var_param, generator)
+        direction, state = self.descent_direction(grad, state)
+        var_param = objective.update(var_param, learning_rate * direction)
+        if self._weight_decay > 0.0:
+            var_param = var_param * (1.0 - self._weight_decay)
+        return var_param, state, value, direction, grad
+
+    #: steps per progress report when a ``progress_callback`` is given
+    progress_every = 200
+
+    def optimize(self, n_iters, objective, init_param, generator=None,
+                 progress_callback=None):
+        """Run the fixed-learning-rate loop.
+
+        ``progress_callback(k, avg_loss)`` is invoked every
+        ``progress_every`` steps (and at the end) with the mean loss of
+        the steps since the last report.
+        """
+        var_param = init_param.detach().clone()
+        if generator is None:
+            generator = default_generator(var_param.device)
+        iap = self._iterate_avg_prop
+        diagnostics = self._diagnostics
+        # reference window: int(k * iap) with k the final iteration index
+        window = max(1, int((n_iters - 1) * iap)) if iap is not None else 1
+        ring = torch.zeros((window, var_param.shape[0]), dtype=var_param.dtype,
+                           device=var_param.device)
+        state = self.init_state(var_param)
+        values, params, dirs = [], [], []
+        for i in range(n_iters):
+            var_param, state, value, direction, _ = self.step(
+                objective, var_param, state, generator, self._learning_rate)
+            ring[i % window] = var_param
+            values.append(value)
+            if diagnostics:
+                params.append(var_param)
+                dirs.append(direction)
+            if progress_callback is not None and (
+                    (i + 1) % self.progress_every == 0 or i + 1 == n_iters):
+                seg_len = (i + 1) % self.progress_every or self.progress_every
+                progress_callback(i + 1, float(torch.stack(values[-seg_len:]).mean()))
+        results = {"value_history": torch.stack(values)}
+        if diagnostics:
+            results["variational_param_history"] = torch.stack(params)
+            results["descent_dir_history"] = torch.stack(dirs)
+        if iap is not None:
+            results["opt_param"] = ring.sum(dim=0) / min(n_iters, window)
+        else:
+            results["opt_param"] = var_param
+        return results
+
+
+class RMSProp(StochasticGradientOptimizer):
+    """RMSProp; like the reference, the state is seeded with the first
+    squared gradient (reference optimization.py:189-196)."""
+
+    def __init__(self, learning_rate, *, weight_decay=0.0, iterate_avg_prop=0.2,
+                 beta=0.9, jitter=1e-8, diagnostics=False):
+        self._beta = float(beta)
+        self._jitter = float(jitter)
+        super().__init__(learning_rate, weight_decay=weight_decay,
+                         iterate_avg_prop=iterate_avg_prop, diagnostics=diagnostics)
+
+    def init_state(self, var_param):
+        return {"avg_grad_sq": torch.zeros_like(var_param), "t": 0}
+
+    def descent_direction(self, grad, state):
+        if state["t"] == 0:
+            nu = grad**2
+        else:
+            nu = self._beta * state["avg_grad_sq"] + (1.0 - self._beta) * grad**2
+        direction = grad / torch.sqrt(self._jitter + nu)
+        return direction, {"avg_grad_sq": nu, "t": state["t"] + 1}
+
+
+class AveragedRMSProp(StochasticGradientOptimizer):
+    """Averaged RMSProp (Mukkamala & Hein 2017): ``beta_k = 1 - 1/k``."""
+
+    def __init__(self, learning_rate, *, jitter=1e-8, diagnostics=False,
+                 component_wise=True):
+        self._jitter = float(jitter)
+        self._component_wise = bool(component_wise)
+        super().__init__(learning_rate, diagnostics=diagnostics)
+
+    def init_state(self, var_param):
+        return {"avg_grad_sq": torch.zeros_like(var_param), "t": 0}
+
+    def descent_direction(self, grad, state):
+        t = state["t"] + 1
+        beta = 1.0 - 1.0 / t
+        nu = beta * state["avg_grad_sq"] + (1.0 - beta) * grad**2
+        if self._component_wise:
+            direction = grad / torch.sqrt(self._jitter + nu)
+        else:
+            direction = grad / torch.sqrt(self._jitter + torch.sum(nu))
+        return direction, {"avg_grad_sq": nu, "t": t}
