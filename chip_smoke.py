@@ -1,14 +1,16 @@
 """Drive viabel_torch on one CUDA card: build the kernels, hold each against
 its plain PyTorch version, run bbvi's adaptive path at the flagship width,
-and run the README quickstart.
+then vi_diagnostics on its result (the front door), the error-bounds branch
+at width, and the README quickstart.
 
     python3 chip_smoke.py
 
 Every phase raises on failure, so the process exits non-zero. Without a
 CUDA device it exits non-zero at once and prints no result. The last line
 of standard output is one JSON object; the line before it lists each
-kernel's launches on the main path, its error against the plain version
-and both times.
+kernel's launches on the path that runs it, its error against the plain
+version, its time, the plain version's, the library call's, and the least
+time the card could take for the same work.
 """
 
 import json
@@ -25,12 +27,19 @@ KERNEL_SOURCES = {
                          "viabel_tpu/ops/ringstats.py:34"),
     "stl_transpose_solve": ("viabel_torch/csrc/stl_solve.cu",
                             "viabel_tpu/ops/trsm.py:185"),
+    "vmem_solve_triangular": ("viabel_torch/csrc/tri_solve.cu",
+                              "viabel_tpu/ops/trsm.py:149"),
 }
 DEVICE = "cuda"
 FLAGSHIP_DIM = 1000
 N_DATA = 512
 MAIN_PATH_ITERS = 2000
 FLAGSHIP_LR = 0.001
+N_DIAG_SAMPLES = 100000  # vi_diagnostics' default n_samples
+#: NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, and FLOP/s outside the
+#: tensor cores by element type
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def log(*args):
@@ -52,6 +61,22 @@ def cuda_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes, flops, dtype):
+    """Least milliseconds for ``nbytes`` of traffic and ``flops`` operations
+    of ``dtype``, and which of the two sets it."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
+    return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
+            else {"bound_ms": t_ops, "bound_by": "operations"})
+
+
+def tri_solve_bound(d, S, dtype):
+    """T's triangle and B read once, X written once; d^2 S FLOP (d(d-1)/2
+    multiply-adds and d scalings per column)."""
+    size = torch.finfo(dtype).bits // 8
+    return bound((d * (d + 1) // 2 + 2 * d * S) * size, d * d * S, dtype)
 
 
 def phase_build():
@@ -99,8 +124,14 @@ def phase_ring_stats(results):
             plain_ms = cuda_ms(lambda: ring_group_stats_plain(ring, center, group))
             gbps = R * D * ring.element_size() / (ms * 1e-3) / 1e9
             line += f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} kernel_GB/s={gbps:.1f}"
-            results["ring_group_stats"] = {"max_abs_err": max(err_s, err_q),
-                                           "ms": ms, "plain_ms": plain_ms}
+            # the ring and center read once, GS and GQ written once; a
+            # subtract, a square and two adds per element; no single
+            # PyTorch call computes both sums
+            size = ring.element_size()
+            results["ring_group_stats"] = {
+                "max_abs_err": max(err_s, err_q), "ms": ms, "plain_ms": plain_ms,
+                **bound((R * D + D + 2 * (R // group) * D) * size, 4 * R * D, dtype),
+                "library_ms": None}
         log(line)
         del ring, GS, GQ, PS, PQ
     torch.cuda.empty_cache()
@@ -125,6 +156,7 @@ def check_stl(theta, B, label):
 
 def phase_stl(results):
     from viabel_torch.ops import stl_transpose_solve, stl_transpose_solve_plain
+    from viabel_torch.ops.trsm import cholesky_factor
     gen = torch.Generator("cuda").manual_seed(2)
     shapes = [(8, 3), (130, 5), (1000, 10), (1000, 400), (1536, 16)]
     for d, S in shapes:
@@ -138,11 +170,15 @@ def phase_stl(results):
         if d == FLAGSHIP_DIM:
             ms = cuda_ms(lambda: stl_transpose_solve(theta32, B32))
             plain_ms = cuda_ms(lambda: stl_transpose_solve_plain(theta32, B32))
+            # the library call: cuBLAS's solve on the factor formed outside
+            LT = cholesky_factor(theta32).T
+            library_ms = cuda_ms(lambda: torch.linalg.solve_triangular(LT, B32, upper=True))
             log(f"[stl_transpose_solve] ({d}, {S}) float32 kernel_ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f}")
+                f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f}")
             if S == 10:
-                results["stl_transpose_solve"] = {"max_abs_err": err, "ms": ms,
-                                                  "plain_ms": plain_ms}
+                results["stl_transpose_solve"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    **tri_solve_bound(d, S, torch.float32), "library_ms": library_ms}
 
 
 def phase_main_path(counts):
@@ -193,11 +229,217 @@ def phase_main_path(counts):
         raise AssertionError("opt_param is not finite of shape (d + d^2,)")
     if not last < first:
         raise AssertionError(f"loss did not fall: first {first} last {last}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in ("ring_group_stats", "stl_transpose_solve"):
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
-    # the final iterate's factor block, for phase 3's float32 check
-    return opt_param[d:].reshape(d, d).contiguous()
+    return res, objective
+
+
+def triangle(d, lower, gen, dtype):
+    """tests/test_ops.py's recipe: tril(randn) + d I, transposed for upper."""
+    A = torch.tril(torch.randn((d, d), generator=gen, device=DEVICE, dtype=dtype))
+    A += d * torch.eye(d, device=DEVICE, dtype=dtype)
+    return A if lower else A.T.contiguous()
+
+
+def check_solve(X, P, label):
+    """Hold a solve against the plain version; return max_abs_err."""
+    torch.cuda.synchronize()
+    err = float((X - P).abs().max())
+    rel = err / float(P.abs().max())
+    if X.dtype == torch.float64:
+        torch.testing.assert_close(X, P, rtol=1e-8, atol=1e-12)
+    elif not rel <= 1e-4:  # also catches NaN
+        raise AssertionError(f"vmem_solve_triangular f32 {label}: max-norm rel err {rel}")
+    log(f"[tri_solve] {label} {X.dtype}: max_abs_err={err:.3e} maxnorm_rel_err={rel:.3e}")
+    return err
+
+
+def phase_tri_solve(results):
+    """Kernel 3 against its plain version at the front door's shapes: the
+    log weights' (d, n_samples), the KSD null scores' (d, 4096), bbvi-sized
+    and vector right-hand sides; then the autograd adjoint."""
+    from viabel_torch.families import _tri_solve
+    from viabel_torch.ops import vmem_solve_triangular, vmem_solve_triangular_plain
+    gen = torch.Generator(DEVICE).manual_seed(8)
+    d0 = FLAGSHIP_DIM
+    shapes = [(8, 3), (130, 5), (300, 7), (d0, 10), (d0, 1), (d0, 4096),
+              (d0, N_DIAG_SAMPLES), (1536, 16)]
+    for dtype in (torch.float64, torch.float32):
+        for d, S in shapes:
+            for lower in (True, False):
+                T = triangle(d, lower, gen, dtype)
+                B = torch.randn((d, S), generator=gen, device=DEVICE, dtype=dtype)
+                X = vmem_solve_triangular(T, B, lower)
+                P = vmem_solve_triangular_plain(T, B, lower)
+                label = f"({d}, {S}) {'lower' if lower else 'upper'}"
+                err = check_solve(X, P, label)
+                if dtype == torch.float32 and lower and d == d0 and S in (10, 4096,
+                                                                          N_DIAG_SAMPLES):
+                    ms = cuda_ms(lambda: vmem_solve_triangular(T, B, True))
+                    plain_ms = cuda_ms(lambda: vmem_solve_triangular_plain(T, B, True))
+                    library_ms = cuda_ms(
+                        lambda: torch.linalg.solve_triangular(T, B, upper=False))
+                    b = tri_solve_bound(d, S, dtype)
+                    log(f"[tri_solve] {label} float32 kernel_ms={ms:.4f} "
+                        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                        f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']})")
+                    if S == N_DIAG_SAMPLES:
+                        results["vmem_solve_triangular"] = {
+                            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                            "library_ms": library_ms}
+                del T, B, X, P
+    # the adjoint: dB (and dT where asked for) against autograd through
+    # the plain version, at the KSD null scores' width
+    for dtype in (torch.float64, torch.float32):
+        for lower in (True, False):
+            for needs_T in (False, True):
+                T = triangle(d0, lower, gen, dtype).requires_grad_(needs_T)
+                B = torch.randn((d0, 4096), generator=gen, device=DEVICE, dtype=dtype,
+                                requires_grad=True)
+                W = torch.randn((d0, 4096), generator=gen, device=DEVICE, dtype=dtype)
+                inputs = (T, B) if needs_T else (B,)
+                got = torch.autograd.grad(torch.sum(W * _tri_solve(T, B, lower)), inputs)
+                want = torch.autograd.grad(
+                    torch.sum(W * vmem_solve_triangular_plain(T, B, lower)), inputs)
+                for name, g, w in zip(("dT", "dB") if needs_T else ("dB",), got, want):
+                    check_solve(g, w, f"adjoint {name} ({d0}, 4096) "
+                                f"{'lower' if lower else 'upper'}")
+    torch.cuda.empty_cache()
+
+
+def phase_front_door(res, objective, counts):
+    """vi_diagnostics on the main path's result, as a user calls it."""
+    import viabel_torch as vt
+    from viabel_torch import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    diag = vt.vi_diagnostics(res["opt_param"], objective=objective,
+                             generator=torch.Generator(DEVICE).manual_seed(6))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = ops.launch_counts()
+    counts["vmem_solve_triangular"] = launches["vmem_solve_triangular"]
+    khat = float(diag["khat"])
+    ksd_branch = not math.isfinite(khat) or khat > 0.7
+    log(f"[front_door] khat={khat:.4f} branch={'ksd' if ksd_branch else 'error_bounds'} "
+        f"wall_s={wall:.3f} launches={launches} "
+        f"max_memory_allocated_bytes={torch.cuda.max_memory_allocated()}")
+    d = objective.approx.dim
+    if diag["samples"].shape != (d, N_DIAG_SAMPLES):
+        raise AssertionError(f"samples of shape {tuple(diag['samples'].shape)}")
+    if not torch.isfinite(diag["smoothed_log_weights"]).all():
+        raise AssertionError("non-finite smoothed log weights")
+    if ksd_branch:
+        if "d2" in diag or "ksd" not in diag:
+            raise AssertionError("khat tripped the gate but the KSD test did not run")
+        log(f"[front_door] ksd={float(diag['ksd']):.6g} p_value={diag['ksd_p_value']} "
+            f"reject={diag['ksd_reject']} valid={diag['ksd_valid']}")
+        if diag["ksd_valid"] and not math.isfinite(float(diag["ksd"])):
+            raise AssertionError("a valid KSD test with a non-finite statistic")
+    else:
+        check_bounds(diag, "front_door")
+    if counts["vmem_solve_triangular"] <= 0:
+        raise AssertionError("vi_diagnostics never launched vmem_solve_triangular")
+
+
+def check_bounds(diag, tag):
+    if "ksd" in diag or "d2" not in diag:
+        raise AssertionError(f"{tag}: khat passed the gate but the bounds did not run")
+    names = ("d2", "W1", "W2", "mean_error", "std_error", "cov_error", "log_norm_bound")
+    log(f"[{tag}] " + " ".join(f"{k}={float(diag[k]):.6g}" for k in names))
+    if not all(math.isfinite(float(diag[k])) for k in names):
+        raise AssertionError(f"{tag}: a non-finite bound")
+
+
+def correlated_fit(s, rho=0.8):
+    """The target N(0, Sigma) (AR(1) correlation ``rho``, d=1000, float32 on
+    the card) and the FullRankGaussian q = N(0, s^2 Sigma) as a flat
+    parameter, in float32 on the card and float64 on the CPU."""
+    import numpy as np
+
+    import viabel_torch as vt
+    from viabel_torch.models import zoo
+    d = FLAGSHIP_DIM
+    model, _, _ = zoo.correlated_gaussian(dim=d, rho=rho, device=DEVICE,
+                                          dtype=torch.float32)
+    idx = np.arange(d)
+    L = s * np.linalg.cholesky(rho ** np.abs(idx[:, None] - idx[None, :]))
+    theta = np.tril(L, -1) + np.diag(np.log(np.diag(L)))
+    vp64 = torch.as_tensor(np.concatenate([np.zeros(d), theta.reshape(-1)]))
+    approx = vt.FullRankGaussian(d, device=DEVICE, dtype=torch.float32)
+    return model, approx, vp64.to(device=DEVICE, dtype=torch.float32), vp64
+
+
+def phase_error_bounds():
+    """The well-fit branch at width: q = N(0, s^2 Sigma) against the target
+    N(0, Sigma), s = 1.01."""
+    import viabel_torch as vt
+    from viabel_torch import ops
+    from viabel_torch.models import zoo
+    d, s, rho = FLAGSHIP_DIM, 1.01, 0.8
+    model, approx, vp, vp64 = correlated_fit(s, rho)
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    diag = vt.vi_diagnostics(vp, model=model, approx=approx,
+                             generator=torch.Generator(DEVICE).manual_seed(7))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    khat, d2 = float(diag["khat"]), float(diag["d2"]) if "d2" in diag else math.nan
+    # d2 = 2 (CUBO - ELBO) in closed form for q = N(0, s^2 Sigma), p = N(0, Sigma)
+    analytic = d * math.log(s / math.sqrt(2.0 - 1.0 / s**2)) + d * (s**2 - 1.0
+                                                                   - 2.0 * math.log(s))
+    log(f"[error_bounds] khat={khat:.4f} d2={d2:.6f} analytic_d2={analytic:.6f} "
+        f"wall_s={wall:.3f} launches={ops.launch_counts()}")
+    check_bounds(diag, "error_bounds")
+    # the weights are bounded (q is wider), so the true shape is <= 0; over
+    # 40 seeds of this configuration in float64 on the CPU, khat ranged over
+    # [-0.060, 0.106] and d2 over [0.3873, 0.3979] (sd 0.0019)
+    if not khat < 0.3 or not abs(d2 - analytic) < 0.02:
+        raise AssertionError(f"khat {khat} or d2 {d2} far from the analytic values")
+    # the card's float32 log weights (kernel 3) against float64 on the CPU
+    # (plain solve) for the first 20,000 of the same samples; float32 on the
+    # CPU differs from float64 by 3.5e-4 at most over 2,000 samples
+    x = diag["samples"].T[:20000].contiguous()
+    lw = (model(x) - approx.log_density(vp, x)).double().cpu()
+    model64, _, _ = zoo.correlated_gaussian(dim=d, rho=rho, device="cpu",
+                                            dtype=torch.float64)
+    approx64 = vt.FullRankGaussian(d, device="cpu", dtype=torch.float64)
+    x64 = x.double().cpu()
+    lw64 = model64(x64) - approx64.log_density(vp64, x64)
+    err = float((lw - lw64).abs().max())
+    log(f"[error_bounds] log weights, card float32 vs CPU float64: max_abs_err={err:.3e}")
+    if not err <= 5e-3:
+        raise AssertionError(f"card log weights off by {err}")
+
+
+def phase_ksd_branch():
+    """The gated branch at width: q = N(0, 0.9^2 Sigma) is narrower than the
+    target, so the weights are heavy-tailed, khat trips and the KSD test
+    scores 19 null replicates with q's own score, through kernel 3's
+    adjoint: 1 + 2 x 19 launches."""
+    import viabel_torch as vt
+    from viabel_torch import ops
+    model, approx, vp, _ = correlated_fit(0.9)
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    diag = vt.vi_diagnostics(vp, model=model, approx=approx,
+                             generator=torch.Generator(DEVICE).manual_seed(9))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = ops.launch_counts()["vmem_solve_triangular"]
+    khat = float(diag["khat"])
+    log(f"[ksd_branch] khat={khat:.4f} wall_s={wall:.3f} launches={launches}")
+    if "ksd" not in diag or "d2" in diag:
+        raise AssertionError("khat did not trip the gate at s = 0.9")
+    log(f"[ksd_branch] ksd={float(diag['ksd']):.6g} p_value={diag['ksd_p_value']} "
+        f"reject={diag['ksd_reject']} valid={diag['ksd_valid']}")
+    if not diag["ksd_valid"] or not math.isfinite(float(diag["ksd"])):
+        raise AssertionError("the KSD test is invalid at s = 0.9")
+    if launches != 1 + 2 * 19:
+        raise AssertionError(f"{launches} launches of kernel 3, expected 39")
 
 
 def phase_hmc_placement():
@@ -225,9 +467,9 @@ def phase_quickstart():
     from viabel_torch.models import zoo
     model, dim = zoo.funnel()
     ops.reset_launch_counts()
+    gen = torch.Generator(DEVICE).manual_seed(0)
     res = vt.bbvi(dim, log_density=model, learning_rate=0.5, n_iters=3000,
-                  device=DEVICE, dtype=torch.float32,
-                  generator=torch.Generator(DEVICE).manual_seed(0))
+                  device=DEVICE, dtype=torch.float32, generator=gen)
     mu, log_sigma = res["objective"].approx.unpack(res["opt_param"])
     log(f"[quickstart] steps={int(res['value_history'].shape[0])} "
         f"mu={mu.tolist()} sigma={torch.exp(log_sigma).tolist()} "
@@ -236,6 +478,12 @@ def phase_quickstart():
         raise AssertionError("quickstart opt_param is not finite")
     if ops.launch_counts()["ring_group_stats"] <= 0:
         raise AssertionError("quickstart never reached ring_group_stats")
+    # the README workflow: diagnose the fit
+    diag = vt.vi_diagnostics(res["opt_param"], objective=res["objective"], generator=gen)
+    log(f"[quickstart] khat={float(diag['khat']):.4f} "
+        f"branch={'ksd' if 'ksd' in diag else 'error_bounds'}")
+    if not torch.isfinite(diag["smoothed_log_weights"]).all():
+        raise AssertionError("quickstart diagnostics: non-finite smoothed log weights")
 
 
 def main():
@@ -255,10 +503,18 @@ def main():
     phase_build()
     phase_ring_stats(results)
     phase_stl(results)
-    theta = phase_main_path(counts)
+    phase_tri_solve(results)
+    res, objective = phase_main_path(counts)
+    # the final iterate's factor block, for a float32 check of kernel 2
+    d = FLAGSHIP_DIM
+    theta = res["opt_param"][d:].reshape(d, d).contiguous()
     B = torch.randn((FLAGSHIP_DIM, 10), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(5))
     check_stl(theta, B, "(1000, 10) main-path theta")
+    phase_front_door(res, objective, counts)
+    del res, objective
+    phase_error_bounds()
+    phase_ksd_branch()
     phase_hmc_placement()
     phase_quickstart()
     kernels = []
@@ -267,7 +523,7 @@ def main():
                  "replaces": replaces, "launches": counts[name]}
         entry.update(results[name])
         kernels.append(entry)
-    if not all(math.isfinite(k["ms"]) for k in kernels):
+    if not all(math.isfinite(k["ms"]) and math.isfinite(k["bound_ms"]) for k in kernels):
         raise AssertionError("a kernel was not timed")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -51,10 +51,10 @@ def _families(kind, d, table):
     if kind == "full":
         return (vj.FullRankGaussian(d, base_sampler=TableNormal(table)),
                 vt.FullRankGaussian(d, base_sampler=TorchTableNormal(table),
-                                    dtype=torch.float64))
+                                    device="cpu", dtype=torch.float64))
     return (vj.MFGaussian(d, base_sampler=TableNormal(table)),
             vt.MFGaussian(d, base_sampler=TorchTableNormal(table),
-                          dtype=torch.float64))
+                          device="cpu", dtype=torch.float64))
 
 
 def _params(approx_j, rng, scale=0.3):
@@ -133,7 +133,8 @@ def test_exclusive_kl_loss_and_gradient_match_jax(kind, use_path_deriv):
     table = rng.randn(64, d)
     fj, ft = _families(kind, d, table)
     model_j, _ = vj.zoo.logistic_regression(dim=d, n_data=30)
-    model_t, _ = vt.zoo.logistic_regression(dim=d, n_data=30, dtype=torch.float64)
+    model_t, _ = vt.zoo.logistic_regression(dim=d, n_data=30, device="cpu",
+                                        dtype=torch.float64)
     obj_j = vj.ExclusiveKL(fj, model_j, 10, use_path_deriv=use_path_deriv)
     obj_t = vt.ExclusiveKL(ft, model_t, 10, use_path_deriv=use_path_deriv)
     vp = _params(fj, rng, scale=0.2)
@@ -151,7 +152,8 @@ def test_zoo_log_densities_and_gradients_match_jax():
     rng = np.random.RandomState(3)
     for (m_j, d), (m_t, _) in (
             (vj.zoo.logistic_regression(dim=6, n_data=50, seed=2),
-             vt.zoo.logistic_regression(dim=6, n_data=50, seed=2, dtype=torch.float64)),
+             vt.zoo.logistic_regression(dim=6, n_data=50, seed=2, device="cpu",
+                                        dtype=torch.float64)),
             (vj.zoo.funnel(), vt.zoo.funnel())):
         x = rng.randn(4, d)
         lp_j, g_j = jax.value_and_grad(lambda z: jnp.sum(m_j(z)))(jnp.asarray(x))
@@ -176,7 +178,7 @@ def test_step_rules_match_jax_over_five_steps(rule):
         dir_j, st_j = opt_j.descent_direction(jnp.asarray(g), st_j)
         dir_t, st_t = opt_t.descent_direction(torch.as_tensor(g), st_t)
         np.testing.assert_allclose(dir_t.numpy(), np.asarray(dir_j), rtol=1e-12)
-        conv = rmsprop_state_from_jax(st_j)
+        conv = rmsprop_state_from_jax(st_j, device="cpu")
         np.testing.assert_allclose(st_t["avg_grad_sq"].numpy(),
                                    conv["avg_grad_sq"].numpy(), rtol=1e-12)
         assert st_t["t"] == conv["t"]
@@ -189,7 +191,8 @@ def test_plain_rmsprop_optimize_matches_jax():
     table = np.random.RandomState(0).randn(10, d)
     fj, ft = _families("full", d, table)
     model_j, _ = vj.zoo.logistic_regression(dim=d, n_data=20)
-    model_t, _ = vt.zoo.logistic_regression(dim=d, n_data=20, dtype=torch.float64)
+    model_t, _ = vt.zoo.logistic_regression(dim=d, n_data=20, device="cpu",
+                                        dtype=torch.float64)
     res_j = vj.bbvi(d, objective=vj.ExclusiveKL(fj, model_j, 10), n_iters=60,
                     adaptive=False, fixed_lr=True, learning_rate=0.01)
     res_t = vt.bbvi(d, objective=vt.ExclusiveKL(ft, model_t, 10), n_iters=60,
@@ -201,17 +204,58 @@ def test_plain_rmsprop_optimize_matches_jax():
 
 
 def test_convert_checks_layouts():
-    ft = vt.FullRankGaussian(3, dtype=torch.float64)
+    ft = vt.FullRankGaussian(3, device="cpu", dtype=torch.float64)
     assert params_from_jax(np.arange(12.0), ft).shape == (12,)
     with pytest.raises(ValueError):
         params_from_jax(np.arange(6.0), ft)
     with pytest.raises(ValueError):
-        params_from_jax(np.arange(5.0), vt.MFGaussian(3))
+        params_from_jax(np.arange(5.0), vt.MFGaussian(3, device="cpu"))
     with pytest.raises(ValueError):
-        vt.convert.ring_from_jax(np.zeros((4, 8, 1)), 9)
+        vt.convert.ring_from_jax(np.zeros((4, 8, 1)), 9, device="cpu")
 
 
 def test_control_variates_are_not_ported_yet():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vt.ExclusiveKL(vt.MFGaussian(2), vt.zoo.funnel()[0], 10,
+        vt.ExclusiveKL(vt.MFGaussian(2, device="cpu"), vt.zoo.funnel()[0], 10,
                        hessian_approx_method="full")
+
+
+def _zoo_pairs():
+    cpu = dict(device="cpu", dtype=torch.float64)
+    mean, sd = np.array([0.5, -1.0, 2.0]), np.array([1.0, 0.3, 2.5])
+    means = ((-3.0, -3.0, 0.0), (3.0, 3.0, 1.0))
+    return {
+        "correlated_gaussian": (vj.zoo.correlated_gaussian(4, 0.7)[:2],
+                                vt.zoo.correlated_gaussian(4, 0.7, **cpu)[:2]),
+        "diagonal_gaussian": (vj.zoo.diagonal_gaussian(mean, sd),
+                              vt.zoo.diagonal_gaussian(mean, sd, **cpu)),
+        "gaussian_mixture": (vj.zoo.gaussian_mixture(means, 1.5, (1.0, 3.0))[:2],
+                             vt.zoo.gaussian_mixture(means, 1.5, (1.0, 3.0), **cpu)[:2]),
+        "robust_regression": (vj.zoo.robust_regression(n_data=30),
+                              vt.zoo.robust_regression(n_data=30, **cpu)),
+        "eight_schools": (vj.zoo.eight_schools(), vt.zoo.eight_schools(**cpu)),
+    }
+
+
+@pytest.mark.parametrize("name", ["correlated_gaussian", "diagonal_gaussian",
+                                  "gaussian_mixture", "robust_regression",
+                                  "eight_schools"])
+def test_new_zoo_targets_match_jax(name):
+    """Log density and gradient of each target the port added, rtol 1e-12
+    (the same float64 formulas on the same numpy-made data)."""
+    (m_j, d), (m_t, d_t) = _zoo_pairs()[name]
+    assert d_t == d
+    x = np.random.RandomState(17).randn(5, d)
+    lp_j, g_j = jax.value_and_grad(lambda z: jnp.sum(m_j(z)))(jnp.asarray(x))
+    xt = torch.as_tensor(x).requires_grad_(True)
+    lp_t = m_t(xt)
+    (g_t,) = torch.autograd.grad(lp_t.sum(), xt)
+    np.testing.assert_allclose(lp_t.detach().numpy(), np.asarray(m_j(jnp.asarray(x))),
+                               rtol=1e-12)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-12, atol=1e-14)
+    if name in ("correlated_gaussian", "gaussian_mixture"):
+        info_j = getattr(vj.zoo, name)(*(() if name == "gaussian_mixture" else (4, 0.7)))[2]
+        info_t = getattr(vt.zoo, name)(*(() if name == "gaussian_mixture" else (4, 0.7)),
+                                       device="cpu", dtype=torch.float64)[2]
+        for key, value in info_j.items():
+            np.testing.assert_allclose(np.asarray(info_t[key]), np.asarray(value))

@@ -98,10 +98,11 @@ def _objectives(S, table):
     logistic_regression, at a small width, on both sides."""
     smp_j, smp_t = StreamNormal(table), TorchStreamNormal(table)
     model_j, _ = vj.zoo.logistic_regression(dim=D, n_data=40)
-    model_t, _ = vt.zoo.logistic_regression(dim=D, n_data=40, dtype=torch.float64)
+    model_t, _ = vt.zoo.logistic_regression(dim=D, n_data=40, device="cpu",
+                                        dtype=torch.float64)
     obj_j = vj.ExclusiveKL(vj.FullRankGaussian(D, base_sampler=smp_j), model_j, S,
                            use_path_deriv=True)
-    obj_t = vt.ExclusiveKL(vt.FullRankGaussian(D, base_sampler=smp_t,
+    obj_t = vt.ExclusiveKL(vt.FullRankGaussian(D, base_sampler=smp_t, device="cpu",
                                                dtype=torch.float64),
                            model_t, S, use_path_deriv=True)
     return (obj_j, smp_j), (obj_t, smp_t)
@@ -307,7 +308,7 @@ def test_wls_and_skl_round_update_match_jax(monkeypatch):
     monkeypatch.setattr(vt.RAABBVI, "weighted_linear_regression",
                         lambda self, *a, **k: fake)
     fj = vj.FullRankGaussian(3)
-    ft = vt.FullRankGaussian(3, dtype=torch.float64)
+    ft = vt.FullRankGaussian(3, device="cpu", dtype=torch.float64)
     vp0, vp1 = 0.1 * rng.randn(12), 0.1 * rng.randn(12)
     hists = {}
     for name, pkg, approx, conv, extra in (
@@ -332,7 +333,8 @@ def test_port_runs_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import torch, viabel_torch as vt\n"
         "model, dim = vt.zoo.funnel()\n"
-        "res = vt.bbvi(dim, log_density=model, n_iters=20, dtype=torch.float64)\n"
+        "res = vt.bbvi(dim, log_density=model, n_iters=20, device='cpu',\n"
+        "              dtype=torch.float64)\n"
         "assert res['value_history'].shape == (20,)\n"
         "assert torch.isfinite(res['opt_param']).all()\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m.startswith('viabel_tpu')\n"
@@ -349,13 +351,13 @@ def test_port_runs_without_jax():
 def test_deferred_routes_raise_with_a_roadmap_pointer(kwargs):
     model, dim = vt.zoo.funnel()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vt.bbvi(dim, log_density=model, n_iters=5, **kwargs)
+        vt.bbvi(dim, log_density=model, n_iters=5, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("name", ["MFStudentT", "MultivariateT", "LRGaussian",
                                   "NeuralNet", "NVPFlow", "IWELBO",
                                   "DISInclusiveKL", "AlphaDivergence", "Adam",
-                                  "vi_diagnostics"])
+                                  "Adagrad"])
 def test_unported_names_raise_with_a_roadmap_pointer(name):
     assert hasattr(vj, name)  # each exists in the reference
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item"):

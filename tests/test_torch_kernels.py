@@ -9,11 +9,15 @@ version and skip without a card; on a machine with one, run them with
 (``--noconftest`` because tests/conftest.py configures JAX).
 """
 
+import inspect
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import viabel_torch as vt  # noqa: E402
 from viabel_torch import ops  # noqa: E402
+from viabel_torch.families import _tri_solve  # noqa: E402
 from viabel_torch.ops import _build  # noqa: E402
 
 
@@ -47,7 +51,15 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     B = torch.randn(6, 2, dtype=torch.float64)
     assert torch.equal(ops.stl_transpose_solve(theta, B),
                        ops.stl_transpose_solve_plain(theta, B))
-    assert ops.launch_counts() == {"ring_group_stats": 0, "stl_transpose_solve": 0}
+    T = torch.tril(torch.randn(6, 6, dtype=torch.float64)) + 6 * torch.eye(6)
+    for lower in (True, False):
+        TT = T if lower else T.T
+        assert torch.equal(ops.vmem_solve_triangular(TT, B, lower),
+                           ops.vmem_solve_triangular_plain(TT, B, lower))
+        assert torch.equal(_tri_solve(TT, B, lower),
+                           ops.vmem_solve_triangular_plain(TT, B, lower))
+    assert ops.launch_counts() == {"ring_group_stats": 0, "stl_transpose_solve": 0,
+                                   "vmem_solve_triangular": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -62,6 +74,64 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         ops.stl_transpose_solve(torch.zeros(4, 4, dtype=torch.float64),
                                 torch.zeros(3, 1, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        ops.vmem_solve_triangular(torch.eye(4, 3, dtype=torch.float64),
+                                  torch.zeros(4, 1, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        ops.vmem_solve_triangular(torch.eye(4, dtype=torch.float64),
+                                  torch.zeros(3, 1, dtype=torch.float64))
+
+
+#: every entry point that places tensors, with a call that names no device
+ENTRY_POINTS = {
+    "bbvi": lambda: vt.bbvi(2, log_density=vt.zoo.funnel()[0], n_iters=5),
+    "ApproximationFamily": lambda: vt.ApproximationFamily(2, 4, True, True),
+    "MFGaussian": lambda: vt.MFGaussian(2),
+    "FullRankGaussian": lambda: vt.FullRankGaussian(2),
+    "logistic_regression": lambda: vt.zoo.logistic_regression(dim=3, n_data=5),
+    "correlated_gaussian": lambda: vt.zoo.correlated_gaussian(3),
+    "diagonal_gaussian": lambda: vt.zoo.diagonal_gaussian([0.0], [1.0]),
+    "gaussian_mixture": lambda: vt.zoo.gaussian_mixture(),
+    "robust_regression": lambda: vt.zoo.robust_regression(),
+    "eight_schools": lambda: vt.zoo.eight_schools(),
+    "rmsprop_state_from_jax": lambda: vt.convert.rmsprop_state_from_jax(
+        {"avg_grad_sq": [1.0], "t": 1}),
+    "ring_from_jax": lambda: vt.convert.ring_from_jax([[[0.0]] * 8], 1),
+}
+_DEFAULTS_OF = {"bbvi": vt.bbvi, "ApproximationFamily": vt.ApproximationFamily,
+                "MFGaussian": vt.MFGaussian, "FullRankGaussian": vt.FullRankGaussian,
+                "rmsprop_state_from_jax": vt.convert.rmsprop_state_from_jax,
+                "ring_from_jax": vt.convert.ring_from_jax}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name, monkeypatch):
+    """Every entry point defaults to device="cuda"; without a card, a call
+    that names no device raises instead of running on the CPU."""
+    fn = _DEFAULTS_OF.get(name) or getattr(vt.zoo, name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        ENTRY_POINTS[name]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_run_on_the_card_by_default(cuda, name):
+    out = ENTRY_POINTS[name]()
+    tensors = []
+    if name == "bbvi":
+        tensors = [out["opt_param"]]
+    elif isinstance(out, vt.ApproximationFamily):
+        tensors = [out.init_param()]
+    elif isinstance(out, dict):
+        tensors = [out["avg_grad_sq"]]
+    elif torch.is_tensor(out):
+        tensors = [out]
+    else:  # a zoo target: evaluate it at zeros on the card
+        model, dim = out[0], out[1]
+        tensors = [model(torch.zeros((2, dim), device=cuda))]
+    assert all(t.is_cuda for t in tensors)
 
 
 def test_missing_nvcc_raises_with_the_paths_tried(monkeypatch):
@@ -130,3 +200,67 @@ def test_cuda_path_raises_when_the_loader_fails(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="loader failed"):
         ops.stl_transpose_solve(torch.zeros(4, 4, device=cuda),
                                 torch.zeros(4, 1, device=cuda))
+    with pytest.raises(RuntimeError, match="loader failed"):
+        ops.vmem_solve_triangular(torch.eye(4, device=cuda),
+                                  torch.zeros(4, 1, device=cuda))
+
+
+TRI_SHAPES = [(8, 3, True), (130, 5, False), (300, 7, True), (1000, 10, False),
+              (1000, 1, True), (1000, 4096, False), (1536, 16, True), (257, 33, False)]
+
+
+def _triangle(d, lower, gen, device, dtype):
+    """tests/test_ops.py's recipe: tril(randn) + d I, transposed for upper."""
+    A = torch.tril(torch.randn(d, d, generator=gen, device=device, dtype=dtype))
+    A = A + d * torch.eye(d, device=device, dtype=dtype)
+    return A if lower else A.T.contiguous()
+
+
+def _assert_solve_close(X, P, dtype):
+    if dtype == torch.float64:
+        torch.testing.assert_close(X, P, rtol=1e-8, atol=1e-12)
+    else:
+        # float32 substitution in another order: max-norm relative error
+        assert float((X - P).abs().max()) <= 1e-4 * float(P.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("d,S,lower", TRI_SHAPES)
+def test_vmem_solve_triangular_kernel_matches_plain(cuda, d, S, lower, dtype):
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(cuda).manual_seed(d + S)
+    T = _triangle(d, lower, gen, cuda, dtype)
+    B = torch.randn(d, S, generator=gen, device=cuda, dtype=dtype)
+    P = ops.vmem_solve_triangular_plain(T, B, lower)
+    before = ops.launch_counts()["vmem_solve_triangular"]
+    X = ops.vmem_solve_triangular(T, B, lower)
+    # a column-major right-hand side (the transposed view log_density passes)
+    Bt = B.T.contiguous().T
+    Xt = ops.vmem_solve_triangular(T, Bt, lower)
+    assert ops.launch_counts()["vmem_solve_triangular"] == before + 2
+    assert Xt.stride() == Bt.stride()  # X takes B's layout
+    _assert_solve_close(X, P, dtype)
+    _assert_solve_close(Xt, P, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("needs_T", [True, False])
+def test_tri_solve_adjoint_matches_plain_autograd(cuda, lower, needs_T):
+    """dB (and dT where asked for) through the kernel's adjoint against
+    autograd through torch.linalg.solve_triangular, float64."""
+    d, S = 300, 9
+    gen = torch.Generator(cuda).manual_seed(7)
+    T = _triangle(d, lower, gen, cuda, torch.float64).requires_grad_(needs_T)
+    B = torch.randn(d, S, generator=gen, device=cuda,
+                    dtype=torch.float64).requires_grad_(True)
+    W = torch.randn(d, S, generator=gen, device=cuda, dtype=torch.float64)
+    inputs = (T, B) if needs_T else (B,)
+    before = ops.launch_counts()["vmem_solve_triangular"]
+    got = torch.autograd.grad(torch.sum(W * torch.sin(_tri_solve(T, B, lower))), inputs)
+    assert ops.launch_counts()["vmem_solve_triangular"] == before + 2
+    want = torch.autograd.grad(torch.sum(W * torch.sin(
+        ops.vmem_solve_triangular_plain(T, B, lower))), inputs)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-8, atol=1e-12)

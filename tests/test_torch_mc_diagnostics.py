@@ -36,7 +36,7 @@ def _fill_ring(R, d, t, rng, drift=0.0):
     for s in range(t):
         ring[s % R] = full[s]
     packed = np.array(pack_rows(jnp.asarray(ring)))
-    return packed, ring_from_jax(packed, d), full
+    return packed, ring_from_jax(packed, d, device="cpu"), full
 
 
 RING_CASES = [(96, 0.0), (200, 0.0), (256, 1.0), (331, 2.0)]  # unwrapped,
@@ -117,3 +117,50 @@ def test_mcse_check_matches_jax(mf, t, w):
     np.testing.assert_allclose(eff_t.numpy(), np.asarray(eff_j)[:d], rtol=1e-8)
     np.testing.assert_allclose(mcse_t.numpy(), np.asarray(mcse_j)[:d], rtol=1e-8)
     assert torch.isinf(eff_t[2]) and mcse_t[2] == 0.0
+
+
+@pytest.mark.parametrize("phi", [0.0, 0.9])
+def test_reference_api_ess_mcse_and_rhat_match_jax(phi):
+    """ess, MCSE and compute_R_hat (the reference's signatures) on an iid
+    and an AR(1) chain, rtol 1e-8: the port's ESS is the vectorized form
+    where JAX's ess runs its while-loop form."""
+    rng = np.random.RandomState(31)
+    n, D = 500, 4
+    x = np.zeros((n, D))
+    eps = rng.randn(n, D)
+    for i in range(1, n):
+        x[i] = phi * x[i - 1] + eps[i]
+    np.testing.assert_allclose(float(tmc.ess(torch.as_tensor(x[:, 0][None]))),
+                               float(jmc.ess(jnp.asarray(x[:, 0][None]))), rtol=1e-8)
+    for got, want in zip(tmc.MCSE(torch.as_tensor(x)), jmc.MCSE(jnp.asarray(x))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-8)
+    for warmup in (0, 101):
+        np.testing.assert_allclose(
+            tmc.compute_R_hat(torch.as_tensor(x), warmup=warmup).numpy(),
+            np.asarray(jmc.compute_R_hat(jnp.asarray(x), warmup=warmup)), rtol=1e-8)
+
+
+@pytest.mark.parametrize("n", [400, 401])
+def test_rank_normalized_R_hat_matches_jax(n):
+    """Bulk and folded-tail statistics on heavy-tailed draws with a trend,
+    even and odd n (the median's two cases), rtol 1e-8."""
+    rng = np.random.RandomState(n)
+    x = rng.standard_t(2.0, size=(n, 3)) + np.linspace(0, 1, n)[:, None] * [0, 1, 3]
+    for warmup in (0, 50):
+        np.testing.assert_allclose(
+            tmc.rank_normalized_R_hat(torch.as_tensor(x), warmup=warmup).numpy(),
+            np.asarray(jmc.rank_normalized_R_hat(jnp.asarray(x), warmup=warmup)),
+            rtol=1e-8)
+
+
+@pytest.mark.parametrize("rank_normalized", [False, True])
+@pytest.mark.parametrize("trend", [0.0, 4.0])
+def test_R_hat_convergence_check_matches_jax(rank_normalized, trend):
+    rng = np.random.RandomState(5)
+    x = rng.randn(600, 5) + trend * np.exp(-np.arange(600) / 100.0)[:, None]
+    windows = [100, 200, 400, 600]
+    got = tmc.R_hat_convergence_check(torch.as_tensor(x), windows,
+                                      rank_normalized=rank_normalized)
+    want = jmc.R_hat_convergence_check(jnp.asarray(x), windows,
+                                       rank_normalized=rank_normalized)
+    assert got == want

@@ -39,11 +39,11 @@ def test_ring_group_stats_plain_matches_pallas(R, D, G):
         GS_j, GQ_j = jax_ring_group_stats(packed, packed[-1], G)
     finally:
         set_pallas_enabled(None)
-    ring = ring_from_jax(packed, D)
+    ring = ring_from_jax(packed, D, device="cpu")
     GS, GQ = ops.ring_group_stats(ring, ring[-1], G)
-    np.testing.assert_allclose(GS.numpy(), ring_from_jax(GS_j, D).numpy(),
+    np.testing.assert_allclose(GS.numpy(), ring_from_jax(GS_j, D, device="cpu").numpy(),
                                rtol=1e-12, atol=1e-12)
-    np.testing.assert_allclose(GQ.numpy(), ring_from_jax(GQ_j, D).numpy(),
+    np.testing.assert_allclose(GQ.numpy(), ring_from_jax(GQ_j, D, device="cpu").numpy(),
                                rtol=1e-12)
 
 

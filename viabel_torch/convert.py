@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from .families import FullRankGaussian, MFGaussian
+from .utils import check_device
 
 __all__ = ["params_from_jax", "rmsprop_state_from_jax", "ring_from_jax"]
 
@@ -34,15 +35,15 @@ def params_from_jax(var_param, approx, device=None, dtype=None):
                            device=device or approx.device)
 
 
-def rmsprop_state_from_jax(state, device="cpu", dtype=None):
+def rmsprop_state_from_jax(state, device="cuda", dtype=None):
     """A JAX ``RMSProp``/``AveragedRMSProp`` state dict as the port's."""
     nu = np.asarray(state["avg_grad_sq"])
-    return {"avg_grad_sq": torch.as_tensor(nu.copy(), device=device,
+    return {"avg_grad_sq": torch.as_tensor(nu.copy(), device=check_device(device),
                                            dtype=dtype or torch.float64),
             "t": int(np.asarray(state["t"]))}
 
 
-def ring_from_jax(packed, D, device="cpu", dtype=None):
+def ring_from_jax(packed, D, device="cuda", dtype=None):
     """A packed ``(R, 8, C)`` JAX history ring as the port's ``(R, D)``
     ring: the row-major flattening of ``utils.unpack_rows``."""
     packed = np.asarray(packed)
@@ -50,5 +51,5 @@ def ring_from_jax(packed, D, device="cpu", dtype=None):
         raise ValueError(f"expected a packed (R, 8, C) ring holding {D} "
                          f"coordinates, got shape {packed.shape}")
     flat = packed.reshape(packed.shape[0], -1)[:, :D]
-    return torch.as_tensor(flat.copy(), device=device,
+    return torch.as_tensor(flat.copy(), device=check_device(device),
                            dtype=dtype or torch.float64)

@@ -10,15 +10,17 @@ between the packages (:mod:`viabel_torch.convert`):
   ``L = tril(theta, -1) + diag(exp(diag theta))``; the strictly-upper
   triangle of ``theta`` is unused (zero gradient, never read).
 
-Families carry the ``device`` and ``dtype`` their parameters live on.
+Families carry the ``device`` and ``dtype`` their parameters live on; the
+device defaults to ``"cuda"`` and raises where no card is present.
 """
 
 import math
 
 import torch
 
-from .ops.trsm import KERNEL_MAX_DIM, cholesky_factor, stl_transpose_solve
-from .utils import deferred_names, ensure_2d
+from .ops.trsm import (KERNEL_MAX_DIM, cholesky_factor, stl_transpose_solve,
+                       vmem_solve_triangular)
+from .utils import check_device, deferred_names, ensure_2d
 
 __all__ = ["ApproximationFamily", "MFGaussian", "FullRankGaussian"]
 
@@ -30,7 +32,39 @@ __getattr__ = deferred_names(__name__, NOT_PORTED)
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
+class _TriSolve(torch.autograd.Function):
+    """``T^{-1} B`` through :func:`vmem_solve_triangular`, with the adjoint
+    of the JAX package's ``blocked_solve_triangular`` (ops/trsm.py:112-122):
+    ``dB = T^{-T} g`` by the same kernel with ``lower`` flipped, and
+    ``dT = -dB X^T`` masked to T's triangle, formed only when asked for."""
+
+    @staticmethod
+    def forward(ctx, T, B, lower):
+        X = vmem_solve_triangular(T, B, lower)
+        ctx.save_for_backward(T, X)
+        ctx.lower = lower
+        return X
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        T, X = ctx.saved_tensors
+        dB = vmem_solve_triangular(T.mT, g, not ctx.lower)
+        dT = None
+        if ctx.needs_input_grad[0]:
+            dT = -dB @ X.mT
+            dT = torch.tril(dT) if ctx.lower else torch.triu(dT)
+        return dT, dB if ctx.needs_input_grad[1] else None, None
+
+
 def _tri_solve(T, B, lower=True):
+    """Differentiable triangular solve. A CUDA ``T`` with ``d <=
+    KERNEL_MAX_DIM`` goes through the kernel (:class:`_TriSolve`); the CPU
+    and larger ``d`` take ``torch.linalg.solve_triangular``. The JAX
+    package sends ``d >= 256`` to its TPU-only blocked solve instead
+    (families.py:55-63); the function computed is the same."""
+    if T.is_cuda and T.shape[0] <= KERNEL_MAX_DIM:
+        return _TriSolve.apply(T, B, lower)
     return torch.linalg.solve_triangular(T, B, upper=not lower)
 
 
@@ -38,12 +72,12 @@ class ApproximationFamily:
     """Abstract base for variational approximation families."""
 
     def __init__(self, dim, var_param_dim, supports_entropy, supports_kl,
-                 device="cpu", dtype=None, base_sampler=None):
+                 device="cuda", dtype=None, base_sampler=None):
         self._dim = int(dim)
         self._var_param_dim = int(var_param_dim)
         self._supports_entropy = bool(supports_entropy)
         self._supports_kl = bool(supports_kl)
-        self._device = torch.device(device)
+        self._device = check_device(device)
         self._dtype = dtype or torch.get_default_dtype()
         self._base_sampler = base_sampler
 
@@ -68,6 +102,9 @@ class ApproximationFamily:
     @property
     def supports_kl(self):
         return self._supports_kl
+
+    def supports_pth_moment(self, p):
+        raise NotImplementedError()
 
     @property
     def dim(self):
@@ -131,11 +168,20 @@ class ApproximationFamily:
     def mean_and_cov(self, var_param):
         raise NotImplementedError()
 
+    def pth_moment(self, var_param, p):
+        """Central absolute pth moment ``E ||X - E X||^p``."""
+        if self.supports_pth_moment(p):
+            return self._pth_moment(var_param, p)
+        raise ValueError(f"p = {p} is not a supported moment")
+
+    def _pth_moment(self, var_param, p):
+        raise NotImplementedError()
+
 
 class MFGaussian(ApproximationFamily):
     """Mean-field Gaussian, ``var_param = [mu, log_sigma]``."""
 
-    def __init__(self, dim, base_sampler=None, device="cpu", dtype=None):
+    def __init__(self, dim, base_sampler=None, device="cuda", dtype=None):
         super().__init__(dim, 2 * dim, True, True, device, dtype, base_sampler)
 
     def unpack(self, var_param):
@@ -173,6 +219,17 @@ class MFGaussian(ApproximationFamily):
     def mean_and_cov(self, var_param):
         mu, log_sigma = self.unpack(var_param)
         return mu, torch.diag(torch.exp(2.0 * log_sigma))
+
+    def _pth_moment(self, var_param, p):
+        _, log_sigma = self.unpack(var_param)
+        variances = torch.exp(2.0 * log_sigma)
+        if p == 2:
+            return torch.sum(variances)
+        # p == 4 (reference approximations.py:242-248)
+        return 2.0 * torch.sum(variances**2) + torch.sum(variances) ** 2
+
+    def supports_pth_moment(self, p):
+        return p in (2, 4)
 
 
 class _CholeskyFamily(ApproximationFamily):
@@ -234,7 +291,7 @@ class FullRankGaussian(_CholeskyFamily):
     """Full-rank Gaussian, ``Sigma = L L^T``; sampling is ``mu + z @ L.T``."""
 
     def __init__(self, dim, init_log_diag=0.0, base_sampler=None,
-                 device="cpu", dtype=None):
+                 device="cuda", dtype=None):
         self._init_log_diag = float(init_log_diag)
         super().__init__(dim, True, True, device, dtype, base_sampler)
 
@@ -291,3 +348,15 @@ class FullRankGaussian(_CholeskyFamily):
     def mean_and_cov(self, var_param):
         mu, _, L = self.unpack(var_param)
         return mu, L @ L.T
+
+    def _pth_moment(self, var_param, p):
+        _, _, L = self.unpack(var_param)
+        # eigenvalue sums via trace/Frobenius identities (no eigh)
+        trace = torch.sum(L**2)  # tr(L L^T)
+        if p == 2:
+            return trace
+        frob_sq = torch.sum((L.T @ L) ** 2)  # ||Sigma||_F^2 = ||L^T L||_F^2
+        return 2.0 * frob_sq + trace**2
+
+    def supports_pth_moment(self, p):
+        return p in (2, 4)

@@ -25,7 +25,9 @@ import torch
 from .ops.ringstats import ring_group_stats
 
 __all__ = ["autocov", "ess_and_mcse_windowed", "split_rhat_windowed",
-           "ring_cum_stats", "split_rhat_ring_windows", "ring_window_mean"]
+           "ring_cum_stats", "split_rhat_ring_windows", "ring_window_mean",
+           "ess", "MCSE", "compute_R_hat", "rank_normalized_R_hat",
+           "R_hat_convergence_check"]
 
 
 def _fft_len(n):
@@ -97,6 +99,19 @@ def ess_and_mcse_windowed(history, w, chunk_size=8192):
     mean = window.sum(dim=0) / w
     var = ((window - mean) ** 2).sum(dim=0) / (w - 1.0)
     return eff, torch.sqrt(var) / torch.sqrt(eff)
+
+
+def ess(samples):
+    """ESS of a single chain given as ``(1, n)`` (or ``(n,)``), the
+    reference's signature."""
+    samples = torch.atleast_2d(torch.as_tensor(samples))
+    return _ess_chunk(samples[:1])[0]
+
+
+def MCSE(samples):
+    """Per-coordinate ``(ESS, MCSE)`` of ``(n_iters, D)`` samples."""
+    samples = torch.as_tensor(samples)
+    return ess_and_mcse_windowed(samples, samples.shape[0])
 
 
 def split_rhat_windowed(history, w, jitter=1e-8):
@@ -212,3 +227,54 @@ def ring_window_mean(ring, t, w, group):
     else:
         arc = stats["P1eS"] - P0
     return arc / w + stats["center"]
+
+
+def compute_R_hat(chains, warmup=0, jitter=1e-8):
+    """Split-R-hat per coordinate of a single chain ``(n_iters, D)``, the
+    reference's signature."""
+    chains = torch.as_tensor(chains)[warmup:, :]
+    return split_rhat_windowed(chains, chains.shape[0], jitter)
+
+
+def _rank_normal_scores(x):
+    """Per-coordinate normal scores of the ranks of ``(n, D)`` draws:
+    ``z = Phi^{-1}((rank + 1 - 3/8) / (n + 1/4))`` (Blom's offset)."""
+    n = x.shape[0]
+    ranks = torch.argsort(torch.argsort(x, dim=0, stable=True), dim=0, stable=True)
+    return torch.special.ndtri((ranks.to(x.dtype) + (1.0 - 0.375)) / (n + 0.25))
+
+
+def rank_normalized_R_hat(chains, warmup=0, jitter=1e-8):
+    """Rank-normalized and folded split-R-hat per coordinate (Vehtari,
+    Gelman, Simpson, Carpenter & Burkner 2021): the larger of split-R-hat
+    on the rank-normalized draws (bulk) and on the rank-normalized
+    ``|x - median|`` (tails). ``chains``: ``(n_iters, D)`` single chain.
+    Offline use: it sorts every coordinate."""
+    x = torch.as_tensor(chains)[warmup:, :]
+    n = x.shape[0]
+    bulk = split_rhat_windowed(_rank_normal_scores(x), n, jitter)
+    xs = torch.sort(x, dim=0).values
+    median = 0.5 * (xs[(n - 1) // 2] + xs[n // 2])
+    tail = split_rhat_windowed(_rank_normal_scores(torch.abs(x - median)), n, jitter)
+    return torch.maximum(bulk, tail)
+
+
+def R_hat_convergence_check(samples, windows, Rhat_threshold=1.1,
+                            rank_normalized=False):
+    """Pick the trailing window with the smallest max split-R-hat.
+
+    ``samples``: ``(n, D)``, most recent last; ``windows``: iterable of
+    ints. ``rank_normalized`` scores each window with
+    :func:`rank_normalized_R_hat` (ranks recomputed within the window).
+    Returns ``(success, best_window)``.
+    """
+    samples = torch.as_tensor(samples)
+    windows = [int(w) for w in windows]
+    n = samples.shape[0]
+    if rank_normalized:
+        r_hats = [torch.max(rank_normalized_R_hat(samples[n - w:])) for w in windows]
+    else:
+        r_hats = [torch.max(split_rhat_windowed(samples, w)) for w in windows]
+    r_hats = torch.stack(r_hats)
+    best = int(torch.argmin(r_hats))
+    return bool(r_hats[best] <= Rhat_threshold), windows[best]

@@ -34,9 +34,12 @@ _SIGNATURES = {
     "viabel_ring_group_stats_f64": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     "viabel_stl_transpose_solve_f32": (_P, _P, _P, _I64, _I64, _P),
     "viabel_stl_transpose_solve_f64": (_P, _P, _P, _I64, _I64, _P),
+    "viabel_tri_solve_f32": (_P, _P, _P) + (_I64,) * 6 + (ctypes.c_int, _P),
+    "viabel_tri_solve_f64": (_P, _P, _P) + (_I64,) * 6 + (ctypes.c_int, _P),
 }
 
-_LAUNCHES = {"ring_group_stats": 0, "stl_transpose_solve": 0}
+_LAUNCHES = {"ring_group_stats": 0, "stl_transpose_solve": 0,
+             "vmem_solve_triangular": 0}
 _state = {"lib": None, "info": None}
 
 

@@ -8,7 +8,9 @@ rings and runs eagerly.
 
 import time
 
-__all__ = ["Timer", "ensure_2d", "not_ported", "deferred_names"]
+import torch
+
+__all__ = ["Timer", "ensure_2d", "not_ported", "deferred_names", "check_device"]
 
 
 class Timer:
@@ -31,6 +33,17 @@ class Timer:
 def ensure_2d(x):
     """Return ``x`` with a leading batch axis (shape ``(n, dim)``)."""
     return x[None, :] if x.dim() == 1 else x
+
+
+def check_device(device):
+    """``torch.device(device)``, raising where it names CUDA and no card is
+    present. The port's entry points default to ``device="cuda"``; there
+    is no silent move to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} is not available (no CUDA "
+                           "card); pass device=\"cpu\" to run on the CPU")
+    return device
 
 
 def not_ported(what, item):
