@@ -155,30 +155,40 @@ def check_stl(theta, B, label):
 
 
 def phase_stl(results):
+    """Kernel 2 against its plain version at the edges of its 32-row panels
+    and column tiles, B in the layout the STL caller passes (the transposed
+    view of contiguous (S, d) draws); then the kernel, the plain version and
+    cuBLAS's solve on the formed factor timed at the main path's shapes and
+    the range edge."""
     from viabel_torch.ops import stl_transpose_solve, stl_transpose_solve_plain
     from viabel_torch.ops.trsm import cholesky_factor
     gen = torch.Generator("cuda").manual_seed(2)
-    shapes = [(8, 3), (130, 5), (1000, 10), (1000, 400), (1536, 16)]
+    shapes = [(8, 3), (33, 17), (130, 5), (FLAGSHIP_DIM, 10), (FLAGSHIP_DIM, 40),
+              (FLAGSHIP_DIM, 400), (1536, 16)]
+    timed = {(FLAGSHIP_DIM, 10), (FLAGSHIP_DIM, 40), (1536, 16)}
     for d, S in shapes:
         # tests/test_ops.py:59-72 recipe in float64
         theta = torch.randn((d, d), generator=gen, device="cuda", dtype=torch.float64)
-        B = torch.randn((d, S), generator=gen, device="cuda", dtype=torch.float64)
+        B = torch.randn((S, d), generator=gen, device="cuda", dtype=torch.float64).T
         check_stl(theta, B, f"({d}, {S})")
         theta32 = 0.1 * torch.randn((d, d), generator=gen, device="cuda")
-        B32 = torch.randn((d, S), generator=gen, device="cuda")
+        B32 = torch.randn((S, d), generator=gen, device="cuda").T
         err, _ = check_stl(theta32, B32, f"({d}, {S})")
-        if d == FLAGSHIP_DIM:
+        if (d, S) in timed:
             ms = cuda_ms(lambda: stl_transpose_solve(theta32, B32))
             plain_ms = cuda_ms(lambda: stl_transpose_solve_plain(theta32, B32))
             # the library call: cuBLAS's solve on the factor formed outside
             LT = cholesky_factor(theta32).T
             library_ms = cuda_ms(lambda: torch.linalg.solve_triangular(LT, B32, upper=True))
+            b = tri_solve_bound(d, S, torch.float32)
             log(f"[stl_transpose_solve] ({d}, {S}) float32 kernel_ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f}")
-            if S == 10:
+                f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                f"kernel/library={ms / library_ms:.4f} "
+                f"bound_ms={b['bound_ms']:.6f} ({b['bound_by']})")
+            if (d, S) == (FLAGSHIP_DIM, 10):
                 results["stl_transpose_solve"] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    **tri_solve_bound(d, S, torch.float32), "library_ms": library_ms}
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                    "library_ms": library_ms}
 
 
 def phase_main_path(counts):

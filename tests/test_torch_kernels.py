@@ -166,26 +166,113 @@ def test_ring_group_stats_kernel_matches_plain(cuda, R, D, G, dtype, offset):
     torch.testing.assert_close(GQ, PQ, rtol=rtol, atol=eps * G * scale**2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("d,S", [(8, 3), (130, 5), (1000, 10), (1000, 400), (1536, 16)])
-def test_stl_transpose_solve_kernel_matches_plain(cuda, d, S, dtype):
-    gen = torch.Generator(cuda).manual_seed(d + S)
-    if dtype == "float64":
-        # tests/test_ops.py's recipe and bar for the Pallas kernel
-        theta = torch.randn(d, d, generator=gen, device=cuda, dtype=torch.float64)
-    else:
-        theta = 0.1 * torch.randn(d, d, generator=gen, device=cuda)
-    B = torch.randn(d, S, generator=gen, device=cuda, dtype=theta.dtype)
-    before = ops.launch_counts()["stl_transpose_solve"]
-    X = ops.stl_transpose_solve(theta, B)
-    assert ops.launch_counts()["stl_transpose_solve"] == before + 1
-    P = ops.stl_transpose_solve_plain(theta, B)
-    if dtype == "float64":
+def _assert_solve_close(X, P, dtype):
+    if dtype == torch.float64:
         torch.testing.assert_close(X, P, rtol=1e-8, atol=1e-12)
     else:
         # float32 substitution in another order: max-norm relative error
         assert float((X - P).abs().max()) <= 1e-4 * float(P.abs().max())
+
+
+#: every edge of the kernel's 32-row panels (d) and column tiles (S)
+STL_SHAPES = [(1, 1), (8, 3), (31, 16), (32, 17), (33, 1), (64, 40), (130, 5),
+              (999, 10), (1000, 10), (1000, 400), (1536, 16)]
+
+
+def _stl_theta(d, dtype, gen, device):
+    if dtype == torch.float64:
+        # tests/test_ops.py's recipe and bar for the Pallas kernel
+        return torch.randn(d, d, generator=gen, device=device, dtype=dtype)
+    return 0.1 * torch.randn(d, d, generator=gen, device=device, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("d,S", STL_SHAPES)
+def test_stl_transpose_solve_kernel_matches_plain(cuda, d, S, dtype):
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(cuda).manual_seed(d + S)
+    theta = _stl_theta(d, dtype, gen, cuda)
+    B = torch.randn(d, S, generator=gen, device=cuda, dtype=dtype)
+    before = ops.launch_counts()["stl_transpose_solve"]
+    X = ops.stl_transpose_solve(theta, B)
+    # a column-major right-hand side: the transposed draws the STL caller passes
+    Bt = B.T.contiguous().T
+    Xt = ops.stl_transpose_solve(theta, Bt)
+    assert ops.launch_counts()["stl_transpose_solve"] == before + 2
+    assert Xt.stride() == Bt.stride()  # X takes B's layout
+    P = ops.stl_transpose_solve_plain(theta, B)
+    _assert_solve_close(X, P, dtype)
+    _assert_solve_close(Xt, P, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("d,S", [(64, 40), (999, 10), (1536, 16)])
+def test_stl_transpose_solve_kernel_large_diagonal_spread(cuda, d, S, dtype):
+    """theta's diagonal in [-3, 3]: the factor's diagonal spans exp(6) ~ 400."""
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(cuda).manual_seed(3 * d + S)
+    theta = 0.01 * torch.randn(d, d, generator=gen, device=cuda, dtype=dtype)
+    theta.diagonal().uniform_(-3.0, 3.0, generator=gen)
+    B = torch.randn(d, S, generator=gen, device=cuda, dtype=dtype)
+    _assert_solve_close(ops.stl_transpose_solve(theta, B),
+                        ops.stl_transpose_solve_plain(theta, B), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("d", [512, 513, 1024, 1025, 1536])
+def test_stl_transpose_solve_every_tile_width_matches_plain(cuda, d, dtype):
+    """Each (columns, rows a thread) the launcher picks from d and the type:
+    2 columns at one and two rows a thread, and at three 8 in float32 and 2
+    in float64; 37 columns leave a ragged last tile in each."""
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(cuda).manual_seed(d)
+    theta = _stl_theta(d, dtype, gen, cuda)
+    B = torch.randn(d, 37, generator=gen, device=cuda, dtype=dtype)
+    _assert_solve_close(ops.stl_transpose_solve(theta, B),
+                        ops.stl_transpose_solve_plain(theta, B), dtype)
+
+
+@pytest.mark.cuda
+def test_stl_transpose_solve_raises_on_what_the_kernel_does_not_take(cuda):
+    theta = torch.zeros(4, 4, device=cuda, dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        # the launcher refuses an empty B; nothing falls back
+        ops.stl_transpose_solve(theta, torch.zeros(4, 0, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.stl_transpose_solve(torch.zeros(4, 8, device=cuda)[:, :4],
+                                torch.zeros(4, 1, device=cuda))
+
+
+@pytest.mark.parametrize("d", [33, 1537])
+def test_stl_whiten_takes_transposed_draws_without_a_copy(d, monkeypatch):
+    """_stl_whiten_T hands the kernel the (d, S) transposed view of the
+    (S, d) draws as it is, and gives the same score direction on a
+    transposed, non-contiguous z as on a contiguous copy; d = 1537 is past
+    the kernel's range and takes the library solve."""
+    from viabel_torch import families
+    gen = torch.Generator().manual_seed(d)
+    theta = 0.1 * torch.randn(d, d, generator=gen, dtype=torch.float64)
+    L = ops.trsm.cholesky_factor(theta)
+    z = torch.randn(5, d, generator=gen, dtype=torch.float64)
+    seen = []
+
+    def spy(theta_, B):
+        seen.append(B)
+        return ops.stl_transpose_solve(theta_, B)
+
+    monkeypatch.setattr(families, "stl_transpose_solve", spy)
+    v = families._stl_whiten_T(theta, L, z)
+    if d <= ops.KERNEL_MAX_DIM:
+        assert seen[0].data_ptr() == z.data_ptr() and not seen[0].is_contiguous()
+    z_t = z.T.contiguous().T  # the same draws, non-contiguous
+    assert not z_t.is_contiguous()
+    torch.testing.assert_close(families._stl_whiten_T(theta, L, z_t), v,
+                               rtol=1e-12, atol=1e-14)
+    torch.testing.assert_close(v, torch.linalg.solve_triangular(L.T, z.T, upper=True).T,
+                               rtol=1e-12, atol=1e-14)
 
 
 @pytest.mark.cuda
@@ -214,14 +301,6 @@ def _triangle(d, lower, gen, device, dtype):
     A = torch.tril(torch.randn(d, d, generator=gen, device=device, dtype=dtype))
     A = A + d * torch.eye(d, device=device, dtype=dtype)
     return A if lower else A.T.contiguous()
-
-
-def _assert_solve_close(X, P, dtype):
-    if dtype == torch.float64:
-        torch.testing.assert_close(X, P, rtol=1e-8, atol=1e-12)
-    else:
-        # float32 substitution in another order: max-norm relative error
-        assert float((X - P).abs().max()) <= 1e-4 * float(P.abs().max())
 
 
 @pytest.mark.cuda

@@ -47,7 +47,7 @@ def test_ring_group_stats_plain_matches_pallas(R, D, G):
                                rtol=1e-12)
 
 
-@pytest.mark.parametrize("d,S", [(8, 3), (130, 5)])
+@pytest.mark.parametrize("d,S", [(8, 3), (130, 5), (33, 17), (64, 40)])
 def test_stl_transpose_solve_plain_matches_pallas(d, S):
     """rtol 1e-8, the accuracy bar of tests/test_ops.py for the Pallas
     kernel's Newton-inverted blocks against a direct solve."""

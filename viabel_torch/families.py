@@ -283,7 +283,7 @@ def _stl_whiten_T(theta_stop, L_stop, w_stop):
     That is the JAX package's own size rule (families.py:508-510).
     """
     if theta_stop.shape[0] <= KERNEL_MAX_DIM:
-        return stl_transpose_solve(theta_stop, w_stop.T.contiguous()).T
+        return stl_transpose_solve(theta_stop, w_stop.T).T
     return _tri_solve(L_stop.T, w_stop.T, lower=False).T
 
 

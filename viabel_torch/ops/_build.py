@@ -32,8 +32,8 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     "viabel_ring_group_stats_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     "viabel_ring_group_stats_f64": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
-    "viabel_stl_transpose_solve_f32": (_P, _P, _P, _I64, _I64, _P),
-    "viabel_stl_transpose_solve_f64": (_P, _P, _P, _I64, _I64, _P),
+    "viabel_stl_transpose_solve_f32": (_P, _P, _P) + (_I64,) * 6 + (_P,),
+    "viabel_stl_transpose_solve_f64": (_P, _P, _P) + (_I64,) * 6 + (_P,),
     "viabel_tri_solve_f32": (_P, _P, _P) + (_I64,) * 6 + (ctypes.c_int, _P),
     "viabel_tri_solve_f64": (_P, _P, _P) + (_I64,) * 6 + (ctypes.c_int, _P),
 }

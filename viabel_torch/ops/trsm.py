@@ -46,8 +46,10 @@ def stl_transpose_solve(theta, B):
     """Solve ``L(theta)^T X = B`` for ``theta`` ``(d, d)``, ``B`` ``(d, S)``.
 
     A CPU ``theta`` takes the plain version; a CUDA ``theta`` launches the
-    kernel, which takes float32/float64, contiguous inputs and
-    ``d <= KERNEL_MAX_DIM``.
+    kernel, which takes float32/float64, a contiguous ``theta`` and
+    ``d <= KERNEL_MAX_DIM``. ``B`` may have any strides; ``X`` takes
+    ``B``'s layout, so the transposed view of a contiguous ``(S, d)``
+    tensor goes in and comes out without a copy.
     """
     if theta.dim() != 2 or theta.shape[0] != theta.shape[1]:
         raise ValueError("theta must be square (d, d)")
@@ -62,16 +64,15 @@ def stl_transpose_solve(theta, B):
         raise TypeError("stl_transpose_solve takes float32 or float64 theta and B")
     if d > KERNEL_MAX_DIM:
         raise ValueError(f"stl_transpose_solve supports d <= {KERNEL_MAX_DIM}")
-    if not (theta.is_contiguous() and B.is_contiguous()):
-        raise ValueError("theta and B must be contiguous")
-    S = B.shape[1]
+    if not theta.is_contiguous():
+        raise ValueError("theta must be contiguous")
+    X = torch.empty_like(B)
     lib = _build.load_library()
-    X = torch.empty((d, S), dtype=B.dtype, device=B.device)
     fn = (lib.viabel_stl_transpose_solve_f32 if theta.dtype == torch.float32
           else lib.viabel_stl_transpose_solve_f64)
     stream = torch.cuda.current_stream(theta.device).cuda_stream
-    _build.check(fn(theta.data_ptr(), B.data_ptr(), X.data_ptr(), d, S, stream),
-                 "stl_transpose_solve")
+    _build.check(fn(theta.data_ptr(), B.data_ptr(), X.data_ptr(), *B.shape,
+                    *B.stride(), *X.stride(), stream), "stl_transpose_solve")
     _build.count_launch("stl_transpose_solve")
     return X
 
