@@ -267,14 +267,19 @@ def check_solve(X, P, label):
 
 def phase_tri_solve(results):
     """Kernel 3 against its plain version at the front door's shapes: the
-    log weights' (d, n_samples), the KSD null scores' (d, 4096), bbvi-sized
-    and vector right-hand sides; then the autograd adjoint."""
+    log weights' (d, n_samples), the KSD null scores' (d, 4096), the
+    RAABBVI round's KL (d, d), bbvi-sized and vector right-hand sides; each
+    caller's shape in float32 timed beside the library call and the bound,
+    (d, 4096) in both directions (the KSD adjoint runs upper); then the
+    autograd adjoint."""
     from viabel_torch.families import _tri_solve
     from viabel_torch.ops import vmem_solve_triangular, vmem_solve_triangular_plain
     gen = torch.Generator(DEVICE).manual_seed(8)
     d0 = FLAGSHIP_DIM
-    shapes = [(8, 3), (130, 5), (300, 7), (d0, 10), (d0, 1), (d0, 4096),
+    shapes = [(8, 3), (130, 5), (300, 7), (d0, 10), (d0, 1), (d0, d0), (d0, 4096),
               (d0, N_DIAG_SAMPLES), (1536, 16)]
+    timed = {(d0, 10, True), (d0, d0, True), (d0, 4096, True), (d0, 4096, False),
+             (d0, N_DIAG_SAMPLES, True)}
     for dtype in (torch.float64, torch.float32):
         for d, S in shapes:
             for lower in (True, False):
@@ -284,15 +289,15 @@ def phase_tri_solve(results):
                 P = vmem_solve_triangular_plain(T, B, lower)
                 label = f"({d}, {S}) {'lower' if lower else 'upper'}"
                 err = check_solve(X, P, label)
-                if dtype == torch.float32 and lower and d == d0 and S in (10, 4096,
-                                                                          N_DIAG_SAMPLES):
-                    ms = cuda_ms(lambda: vmem_solve_triangular(T, B, True))
-                    plain_ms = cuda_ms(lambda: vmem_solve_triangular_plain(T, B, True))
+                if dtype == torch.float32 and (d, S, lower) in timed:
+                    ms = cuda_ms(lambda: vmem_solve_triangular(T, B, lower))
+                    plain_ms = cuda_ms(lambda: vmem_solve_triangular_plain(T, B, lower))
                     library_ms = cuda_ms(
-                        lambda: torch.linalg.solve_triangular(T, B, upper=False))
+                        lambda: torch.linalg.solve_triangular(T, B, upper=not lower))
                     b = tri_solve_bound(d, S, dtype)
                     log(f"[tri_solve] {label} float32 kernel_ms={ms:.4f} "
                         f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                        f"kernel/library={ms / library_ms:.4f} "
                         f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']})")
                     if S == N_DIAG_SAMPLES:
                         results["vmem_solve_triangular"] = {

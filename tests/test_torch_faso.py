@@ -345,13 +345,29 @@ def test_port_runs_without_jax():
 
 
 @pytest.mark.parametrize("kwargs", [dict(num_restarts=2), dict(standardize=True),
-                                    dict(init_method="pathfinder"), dict(fit=object()),
+                                    dict(init_method="pathfinder"),
                                     dict(FASO_kwargs=dict(max_time=1.0), fixed_lr=True),
                                     dict(RAABBVI_kwargs=dict(init_rmsprop=True))])
 def test_deferred_routes_raise_with_a_roadmap_pointer(kwargs):
     model, dim = vt.zoo.funnel()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         vt.bbvi(dim, log_density=model, n_iters=5, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("given,error", [
+    (("fit", "objective"), ValueError), (("fit", "log_density"), ValueError),
+    (("fit",), NotImplementedError), ((), ValueError)])
+def test_bbvi_fit_raises_as_jax_does(given, error):
+    """bbvi checks ``fit`` where the JAX package does: after the objective,
+    beside the log density, and alone it names PyStan fits as unsupported.
+    Each raises before anything is built, so no tensor is made."""
+    args = {"fit": object(), "objective": object(), "log_density": lambda x: x}
+    kwargs = {name: args[name] for name in given}
+    match = "PyStan fits are not supported" if error is NotImplementedError else None
+    with pytest.raises(error, match=match):
+        vj.bbvi(2, **kwargs)
+    with pytest.raises(error, match=match):
+        vt.bbvi(2, device="cpu", dtype=torch.float64, **kwargs)
 
 
 @pytest.mark.parametrize("name", ["MFStudentT", "MultivariateT", "LRGaussian",

@@ -294,6 +294,10 @@ def test_cuda_path_raises_when_the_loader_fails(cuda, monkeypatch):
 
 TRI_SHAPES = [(8, 3, True), (130, 5, False), (300, 7, True), (1000, 10, False),
               (1000, 1, True), (1000, 4096, False), (1536, 16, True), (257, 33, False)]
+# every edge of the kernel's 32-row panels (d) and column tiles (S), both ways
+TRI_SHAPES += [(d, S, lower) for d, S in [(1, 1), (31, 16), (32, 17), (33, 1), (64, 40),
+                                          (999, 10), (1000, 1000), (1025, 9)]
+               for lower in (True, False)]
 
 
 def _triangle(d, lower, gen, device, dtype):
@@ -321,6 +325,42 @@ def test_vmem_solve_triangular_kernel_matches_plain(cuda, d, S, lower, dtype):
     assert Xt.stride() == Bt.stride()  # X takes B's layout
     _assert_solve_close(X, P, dtype)
     _assert_solve_close(Xt, P, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [37, 600])
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("d", [512, 513, 1024, 1025, 1536])
+def test_vmem_solve_triangular_every_tile_width_matches_plain(cuda, d, dtype, lower, S):
+    """Each (columns, rows a thread) the launcher picks from d, S and the
+    type: at 37 columns the narrow tiles (2 columns at one and two rows a
+    thread, and at three 8 in float32 and 2 in float64); at 600 the wide
+    16-column tile in float32 up to 1024 rows. Both leave a ragged last
+    tile in each."""
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(cuda).manual_seed(d + S)
+    T = _triangle(d, lower, gen, cuda, dtype)
+    B = torch.randn(d, S, generator=gen, device=cuda, dtype=dtype)
+    _assert_solve_close(ops.vmem_solve_triangular(T, B, lower),
+                        ops.vmem_solve_triangular_plain(T, B, lower), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("d,S", [(64, 40), (999, 4096)])
+def test_vmem_solve_triangular_kernel_large_diagonal_spread(cuda, d, S, dtype, lower):
+    """T_ii = exp(U[-3, 3]): the diagonal spans exp(6) ~ 400, read as it
+    stands; the rest of the triangle is 0.01 randn."""
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(cuda).manual_seed(5 * d + S)
+    T = 0.01 * torch.randn(d, d, generator=gen, device=cuda, dtype=dtype)
+    T.diagonal().uniform_(-3.0, 3.0, generator=gen).exp_()
+    T = torch.tril(T) if lower else torch.triu(T)
+    B = torch.randn(d, S, generator=gen, device=cuda, dtype=dtype)
+    _assert_solve_close(ops.vmem_solve_triangular(T, B, lower),
+                        ops.vmem_solve_triangular_plain(T, B, lower), dtype)
 
 
 @pytest.mark.cuda

@@ -31,7 +31,8 @@ def _triangle(d, lower, rng):
     return A if lower else A.T
 
 
-@pytest.mark.parametrize("d,S,lower", [(8, 3, True), (130, 5, False), (300, 7, True)])
+@pytest.mark.parametrize("d,S,lower", [(8, 3, True), (130, 5, False), (300, 7, True),
+                                       (33, 17, False), (64, 40, True)])
 def test_vmem_solve_triangular_plain_matches_pallas(d, S, lower):
     """rtol 1e-9, atol 1e-12: the bar of tests/test_ops.py for the Pallas
     kernel's Newton-inverted blocks against a direct solve."""

@@ -49,8 +49,6 @@ def bbvi(dimension, *, n_iters=10000, num_mc_samples=10, log_density=None,
     ``RMS_kwargs=dict(diagnostics=False)`` unless you need them (this also
     turns on the pipelined R-hat verdicts).
     """
-    if fit is not None:
-        raise not_ported("bbvi(fit=...) (PyStan fits)", 8)
     if num_restarts is not None:
         raise not_ported("bbvi(num_restarts=...)", 13)
     if standardize:
@@ -62,15 +60,21 @@ def bbvi(dimension, *, n_iters=10000, num_mc_samples=10, log_density=None,
     RAABBVI_kwargs = dict(RAABBVI_kwargs or {})
 
     if objective is not None:
-        if log_density is not None or approx is not None:
+        if fit is not None or log_density is not None or approx is not None:
             raise ValueError(
-                "an objective already carries its model and family; drop the "
+                "an objective already carries its model and family; drop the fit/"
                 "log_density/approx arguments")
         approx = objective.approx
     else:
         if log_density is None:
-            raise ValueError(
-                "nothing to optimize: pass a log_density (or a prebuilt objective)")
+            if fit is None:
+                raise ValueError(
+                    "nothing to optimize: pass a log_density (or a prebuilt objective)")
+            raise NotImplementedError(
+                "PyStan fits are not supported in viabel_torch; provide a torch "
+                "log_density (see viabel_torch.models.zoo)")
+        elif fit is not None:
+            raise ValueError("pass either log_density or fit, not both")
         model = log_density if isinstance(log_density, Model) else Model(log_density)
         if approx is None:
             approx = MFGaussian(dimension, device=device, dtype=dtype)
