@@ -1,7 +1,10 @@
 """Drive viabel_torch on one CUDA card: build the kernels, hold each against
 its plain PyTorch version, run bbvi's adaptive path at the flagship width,
 then vi_diagnostics on its result (the front door), the error-bounds branch
-at width, and the README quickstart.
+at width, and the README quickstart; then the Student-t family's FASO run
+and its diagnostics, the CUBO and IWELBO objectives' training steps, a
+short run of each family, control-variate estimator and step rule that
+carries no kernel, and the kernels' new paths in float64 against the CPU.
 
     python3 chip_smoke.py
 
@@ -20,6 +23,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 KERNEL_SOURCES = {
@@ -34,7 +38,12 @@ DEVICE = "cuda"
 FLAGSHIP_DIM = 1000
 N_DATA = 512
 MAIN_PATH_ITERS = 2000
+STUDENT_T_ITERS = 2000
+LOOP_ITERS = 300  # each [cubo], [iwelbo] and [families] run
 FLAGSHIP_LR = 0.001
+MEAN_FIELD_LR = 0.01  # bbvi's default, for the families without a dense factor
+#: float64, card against CPU, on the kernels' new paths
+PATH_RTOL = 1e-9
 N_DIAG_SAMPLES = 100000  # vi_diagnostics' default n_samples
 #: NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, and FLOP/s outside the
 #: tensor cores by element type
@@ -278,8 +287,9 @@ def phase_tri_solve(results):
     d0 = FLAGSHIP_DIM
     shapes = [(8, 3), (130, 5), (300, 7), (d0, 10), (d0, 1), (d0, d0), (d0, 4096),
               (d0, N_DIAG_SAMPLES), (1536, 16)]
-    timed = {(d0, 10, True), (d0, d0, True), (d0, 4096, True), (d0, 4096, False),
-             (d0, N_DIAG_SAMPLES, True)}
+    # (d0, 10) upper is the adjoint in every CUBO and plain IWELBO step
+    timed = {(d0, 10, True), (d0, 10, False), (d0, d0, True), (d0, 4096, True),
+             (d0, 4096, False), (d0, N_DIAG_SAMPLES, True)}
     for dtype in (torch.float64, torch.float32):
         for d, S in shapes:
             for lower in (True, False):
@@ -501,6 +511,220 @@ def phase_quickstart():
         raise AssertionError("quickstart diagnostics: non-finite smoothed log weights")
 
 
+def flagship_model(device=None, dtype=torch.float32):
+    from viabel_torch.models import zoo
+    return zoo.logistic_regression(dim=FLAGSHIP_DIM, n_data=N_DATA,
+                                   device=device or DEVICE, dtype=dtype)[0]
+
+
+def report_run(tag, res, wall, launches, k=50):
+    """Log steps/s, the first and last ``k``-step mean loss and the
+    launches of a training run; raise on a non-finite loss or parameter."""
+    values = res["value_history"]
+    steps = int(values.shape[0])
+    first, last = float(values[:k].mean()), float(values[-k:].mean())
+    log(f"{tag} steps={steps} wall_s={wall:.3f} steps_per_s={steps / wall:.2f} "
+        f"first_segment_avg_loss={first:.6f} last_segment_avg_loss={last:.6f} "
+        f"launches={launches}")
+    if not torch.isfinite(values).all() or not torch.isfinite(res["opt_param"]).all():
+        raise AssertionError(f"{tag} non-finite loss or parameter")
+    return steps
+
+
+def timed_run(fn):
+    """``fn()`` with the launch counts set to 0 just before it; returns its
+    result, the wall seconds (ending in a device synchronisation) and the
+    launches read just after."""
+    from viabel_torch import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start, ops.launch_counts()
+
+
+def phase_student_t():
+    """FASO over the STL ExclusiveKL on MultivariateT(1000, df=10): the
+    STL solve (kernel 2) with its per-draw rescaling, once a step, and the
+    ring statistics (kernel 1) in every check; then vi_diagnostics on the
+    result, whose log q runs the triangular solve (kernel 3)."""
+    import viabel_torch as vt
+    d = FLAGSHIP_DIM
+    approx = vt.MultivariateT(d, 10, device=DEVICE, dtype=torch.float32)
+    objective = vt.ExclusiveKL(approx, flagship_model(), 10, use_path_deriv=True)
+    gen = torch.Generator(DEVICE).manual_seed(12)
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, launches = timed_run(lambda: vt.bbvi(
+        d, objective=objective, n_iters=STUDENT_T_ITERS, learning_rate=FLAGSHIP_LR,
+        fixed_lr=True, RMS_kwargs=dict(diagnostics=False),
+        FASO_kwargs=dict(max_history=600), generator=gen))
+    steps = report_run("[student_t]", res, wall, launches, k=200)
+    log(f"[student_t] k_conv={res['k_conv']} k_Rhat={res['k_Rhat']} "
+        f"num_mc_samples={objective.num_mc_samples} "
+        f"escalations={res['mc_escalation_history'].tolist()} "
+        f"max_memory_allocated_bytes={torch.cuda.max_memory_allocated()}")
+    if launches["stl_transpose_solve"] != steps:
+        raise AssertionError(f"[student_t] {launches['stl_transpose_solve']} STL "
+                             f"solves in {steps} steps")
+    if launches["ring_group_stats"] <= 0:
+        raise AssertionError("[student_t] the FASO checks never ran ring_group_stats")
+    diag, wall, launches = timed_run(lambda: vt.vi_diagnostics(
+        res["opt_param"], objective=objective,
+        generator=torch.Generator(DEVICE).manual_seed(13)))
+    khat = float(diag["khat"])
+    log(f"[student_t] vi_diagnostics khat={khat:.4f} "
+        f"branch={'ksd' if 'ksd' in diag else 'error_bounds'} wall_s={wall:.3f} "
+        f"launches={launches}")
+    if not torch.isfinite(diag["smoothed_log_weights"]).all():
+        raise AssertionError("[student_t] non-finite smoothed log weights")
+    if "ksd" in diag:
+        log(f"[student_t] ksd={float(diag['ksd']):.6g} p_value={diag['ksd_p_value']} "
+            f"valid={diag['ksd_valid']}")
+    else:
+        check_bounds(diag, "student_t")
+    if launches["vmem_solve_triangular"] < 1:
+        raise AssertionError("[student_t] vi_diagnostics never ran the triangular solve")
+
+
+def phase_cubo():
+    """AlphaDivergence(alpha=2) on FullRankGaussian(1000) under RMSProp:
+    log q forward (a lower solve) and its adjoint (an upper solve), so two
+    triangular-solve launches a step."""
+    import viabel_torch as vt
+    approx = vt.FullRankGaussian(FLAGSHIP_DIM, device=DEVICE, dtype=torch.float32)
+    objective = vt.AlphaDivergence(approx, flagship_model(), 10, alpha=2.0)
+    gen = torch.Generator(DEVICE).manual_seed(14)
+    res, wall, launches = timed_run(lambda: vt.RMSProp(FLAGSHIP_LR).optimize(
+        LOOP_ITERS, objective, approx.init_param(), generator=gen))
+    steps = report_run("[cubo]", res, wall, launches)
+    if launches["vmem_solve_triangular"] != 2 * steps or launches["stl_transpose_solve"]:
+        raise AssertionError(f"[cubo] launches {launches} in {steps} steps")
+
+
+def phase_iwelbo():
+    """IWELBO (DReG) on FullRankGaussian(1000) under RMSProp: one STL
+    solve a step."""
+    import viabel_torch as vt
+    approx = vt.FullRankGaussian(FLAGSHIP_DIM, device=DEVICE, dtype=torch.float32)
+    objective = vt.IWELBO(approx, flagship_model(), 10)
+    gen = torch.Generator(DEVICE).manual_seed(15)
+    res, wall, launches = timed_run(lambda: vt.RMSProp(FLAGSHIP_LR).optimize(
+        LOOP_ITERS, objective, approx.init_param(), generator=gen))
+    steps = report_run("[iwelbo]", res, wall, launches)
+    if launches["stl_transpose_solve"] != steps or launches["vmem_solve_triangular"]:
+        raise AssertionError(f"[iwelbo] launches {launches} in {steps} steps")
+
+
+def phase_families():
+    """Short runs at d = 1000 of what carries no kernel: MFStudentT,
+    LRGaussian(k=10) with STL, the loo_diag_approx control variates on
+    MFGaussian, each new step rule, and RAABBVI over AveragedAdam."""
+    import viabel_torch as vt
+    d, model = FLAGSHIP_DIM, flagship_model()
+    on_card = dict(device=DEVICE, dtype=torch.float32)
+
+    def mf_kl(**kw):
+        return vt.ExclusiveKL(vt.MFGaussian(d, **on_card), model, 10, **kw)
+
+    runs = [
+        ("mf_student_t", vt.ExclusiveKL(vt.MFStudentT(d, 10, **on_card), model, 10),
+         vt.RMSProp(MEAN_FIELD_LR)),
+        ("lr_gaussian_stl", vt.ExclusiveKL(vt.LRGaussian(d, 10, **on_card), model, 10,
+                                           use_path_deriv=True),
+         vt.RMSProp(MEAN_FIELD_LR)),
+        ("loo_diag_approx", mf_kl(hessian_approx_method="loo_diag_approx"),
+         vt.RMSProp(MEAN_FIELD_LR)),
+        ("adam", mf_kl(), vt.Adam(MEAN_FIELD_LR)),
+        ("averaged_adam", mf_kl(), vt.AveragedAdam(MEAN_FIELD_LR)),
+        ("adagrad", mf_kl(), vt.Adagrad(MEAN_FIELD_LR)),
+        ("windowed_adagrad", mf_kl(), vt.WindowedAdagrad(MEAN_FIELD_LR)),
+    ]
+    for seed, (name, objective, opt) in enumerate(runs):
+        gen = torch.Generator(DEVICE).manual_seed(20 + seed)
+        res, wall, launches = timed_run(lambda: opt.optimize(
+            LOOP_ITERS, objective, objective.approx.init_param(), generator=gen))
+        report_run(f"[families] [{name}]", res, wall, launches)
+    raabbvi = vt.RAABBVI(vt.AveragedAdam(MEAN_FIELD_LR, diagnostics=False), W_min=100,
+                         k_check=50)
+    objective = mf_kl()
+    gen = torch.Generator(DEVICE).manual_seed(30)
+    res, wall, launches = timed_run(lambda: raabbvi.optimize(
+        2 * LOOP_ITERS, objective, objective.approx.init_param(), generator=gen))
+    report_run("[families] [raabbvi_averaged_adam]", res, wall, launches)
+    log(f"[families] [raabbvi_averaged_adam] averaged_branch={raabbvi._averaged_sgo()} "
+        f"k_conv={res['k_conv']} k_mcse={res['k_mcse']} "
+        f"learning_rates={np.asarray(res.get('learning_rate_hist', [])).tolist()}")
+    if not raabbvi._averaged_sgo():
+        raise AssertionError("RAABBVI did not take the averaged branch for AveragedAdam")
+
+
+class TableNormal:
+    """Base sampler handing out one table of standard normals (made on the
+    CPU from a seed) on whichever device the family asks for."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def normal(self, generator, n_samples, width, dtype, device):
+        return self.table[:n_samples, :width].to(device=device, dtype=dtype)
+
+
+def max_rel_err(got, want):
+    return float((got.detach().cpu() - want.detach()).abs().max()
+                 / want.detach().abs().max())
+
+
+def phase_paths_f64():
+    """The kernels' new paths at d = 1000 in float64 on the card against
+    the same computation on the CPU, with the draws injected: MultivariateT's
+    STL log q (value and gradient; kernel 2), the AlphaDivergence value and
+    gradient (kernel 3 forward and adjoint) and the IWELBO value and
+    gradient (DReG; kernel 2)."""
+    import viabel_torch as vt
+    d, df, S = FLAGSHIP_DIM, 10, 10
+    gen = torch.Generator().manual_seed(16)
+    sampler = TableNormal(torch.randn(S, d + df, generator=gen, dtype=torch.float64))
+    perturb = 0.05 * torch.randn(d + d * d, generator=gen, dtype=torch.float64) / d**0.5
+    w = torch.linspace(-1.0, 1.0, S, dtype=torch.float64)
+
+    def stl_hook(approx, vp, model):
+        vp = vp.clone().requires_grad_(True)
+        samples, log_q = approx.sample_and_stl_log_density(vp, S, None)
+        f = torch.sum(w.to(vp.device) * log_q) + 0.1 * torch.sum(samples**2)
+        return (f.detach(), *torch.autograd.grad(f, vp))
+
+    cases = [
+        ("multivariate_t_stl_hook", lambda **kw: vt.MultivariateT(d, df, **kw),
+         stl_hook, {"stl_transpose_solve": 1}),
+        ("alpha_divergence", lambda **kw: vt.FullRankGaussian(d, **kw),
+         lambda a, vp, m: vt.AlphaDivergence(a, m, S, alpha=2.0).value_and_grad(vp, None),
+         {"vmem_solve_triangular": 2}),
+        ("iwelbo_dreg", lambda **kw: vt.FullRankGaussian(d, **kw),
+         lambda a, vp, m: vt.IWELBO(a, m, S).value_and_grad(vp, None),
+         {"stl_transpose_solve": 1}),
+    ]
+    for name, family, fn, expect in cases:
+        outs = {}
+        for device in (DEVICE, "cpu"):
+            approx = family(base_sampler=sampler, device=device, dtype=torch.float64)
+            vp = (approx.init_param() + perturb.to(device)).detach()
+            model = flagship_model(device=device, dtype=torch.float64)
+            outs[device], _, launches = timed_run(lambda: fn(approx, vp, model))
+            if device == DEVICE:
+                card_launches = {k: v for k, v in launches.items() if v}
+        value_err = max_rel_err(outs[DEVICE][0], outs["cpu"][0])
+        grad_err = max_rel_err(outs[DEVICE][1], outs["cpu"][1])
+        log(f"[paths_f64] {name}: value maxnorm_rel_err={value_err:.3e} "
+            f"grad maxnorm_rel_err={grad_err:.3e} launches={card_launches}")
+        if not (value_err <= PATH_RTOL and grad_err <= PATH_RTOL):
+            raise AssertionError(f"[paths_f64] {name}: card against CPU off by "
+                                 f"{value_err}, {grad_err}")
+        if card_launches != expect:
+            raise AssertionError(f"[paths_f64] {name}: launches {card_launches}, "
+                                 f"expected {expect}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -532,6 +756,11 @@ def main():
     phase_ksd_branch()
     phase_hmc_placement()
     phase_quickstart()
+    phase_paths_f64()
+    phase_student_t()
+    phase_cubo()
+    phase_iwelbo()
+    phase_families()
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": source,

@@ -212,12 +212,13 @@ def test_convert_checks_layouts():
         params_from_jax(np.arange(5.0), vt.MFGaussian(3, device="cpu"))
     with pytest.raises(ValueError):
         vt.convert.ring_from_jax(np.zeros((4, 8, 1)), 9, device="cpu")
-
-
-def test_control_variates_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vt.ExclusiveKL(vt.MFGaussian(2, device="cpu"), vt.zoo.funnel()[0], 10,
-                       hessian_approx_method="full")
+    cpu = dict(device="cpu", dtype=torch.float64)
+    for approx, size in ((vt.MFStudentT(3, 5.0, **cpu), 6),
+                         (vt.MultivariateT(3, 5.0, **cpu), 12),
+                         (vt.LRGaussian(3, 2, **cpu), 12)):
+        assert params_from_jax(np.arange(float(size)), approx).shape == (size,)
+        with pytest.raises(ValueError):
+            params_from_jax(np.arange(size + 1.0), approx)
 
 
 def _zoo_pairs():

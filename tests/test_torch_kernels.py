@@ -96,11 +96,19 @@ ENTRY_POINTS = {
     "eight_schools": lambda: vt.zoo.eight_schools(),
     "rmsprop_state_from_jax": lambda: vt.convert.rmsprop_state_from_jax(
         {"avg_grad_sq": [1.0], "t": 1}),
+    "opt_state_from_jax": lambda: vt.convert.opt_state_from_jax(
+        {"avg_grad_sq": [1.0], "momentum": [0.5], "t": 1}),
     "ring_from_jax": lambda: vt.convert.ring_from_jax([[[0.0]] * 8], 1),
+    "MFStudentT": lambda: vt.MFStudentT(2, 5.0),
+    "MultivariateT": lambda: vt.MultivariateT(2, 5.0),
+    "LRGaussian": lambda: vt.LRGaussian(2, 1),
 }
 _DEFAULTS_OF = {"bbvi": vt.bbvi, "ApproximationFamily": vt.ApproximationFamily,
                 "MFGaussian": vt.MFGaussian, "FullRankGaussian": vt.FullRankGaussian,
+                "MFStudentT": vt.MFStudentT, "MultivariateT": vt.MultivariateT,
+                "LRGaussian": vt.LRGaussian,
                 "rmsprop_state_from_jax": vt.convert.rmsprop_state_from_jax,
+                "opt_state_from_jax": vt.convert.opt_state_from_jax,
                 "ring_from_jax": vt.convert.ring_from_jax}
 
 
@@ -383,3 +391,124 @@ def test_tri_solve_adjoint_matches_plain_autograd(cuda, lower, needs_T):
         ops.vmem_solve_triangular_plain(T, B, lower))), inputs)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-8, atol=1e-12)
+
+
+class TableNormal:
+    """Base sampler handing out one fixed table of standard normals (made
+    on the CPU) on whichever device the family asks for."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def normal(self, generator, n_samples, width, dtype, device):
+        return self.table[:n_samples, :width].to(device=device, dtype=dtype)
+
+
+#: f64, card against CPU: the same formulas, solves by substitution on
+#: the card and by LAPACK on the CPU
+PATH_RTOL = 1e-9
+
+
+def _card_and_cpu(kind, d, device, seed=0):
+    """The family, the logistic-regression model and a parameter near the
+    family's start, on the card and on the CPU, in float64, with one table
+    of injected draws."""
+    gen = torch.Generator().manual_seed(seed)
+    df = 10
+    table = TableNormal(torch.randn(64, d + df, generator=gen, dtype=torch.float64))
+    out = []
+    for dev in (device, "cpu"):
+        kw = dict(base_sampler=table, device=dev, dtype=torch.float64)
+        approx = (vt.MultivariateT(d, df, **kw) if kind == "mvt"
+                  else vt.FullRankGaussian(d, **kw))
+        model, _ = vt.zoo.logistic_regression(dim=d, n_data=64, device=dev,
+                                              dtype=torch.float64)
+        out.append((approx, model))
+    vp = out[1][0].init_param() + 0.05 * torch.randn(
+        out[1][0].var_param_dim, generator=gen, dtype=torch.float64) / d ** 0.5
+    return out, vp
+
+
+def _assert_rel_close(got, want, rtol=PATH_RTOL):
+    """Max-norm relative error of a card result against the CPU's."""
+    got = got.detach().cpu()
+    err = float((got - want.detach()).abs().max()) / float(want.detach().abs().max())
+    assert err <= rtol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [130, 1000])
+def test_multivariate_t_stl_hook_on_the_card_matches_cpu(cuda, d):
+    """MultivariateT's fused STL log q (value, and gradient through the
+    samples): one STL-solve launch, no triangular-solve launch."""
+    ((card, model_c), (cpu, _)), vp = _card_and_cpu("mvt", d, cuda)
+    w = torch.linspace(-1.0, 1.0, 7, dtype=torch.float64)
+    results = []
+    for approx, p in ((card, vp.to(cuda)), (cpu, vp)):
+        p = p.clone().requires_grad_(True)
+        before = ops.launch_counts()
+        samples, log_q = approx.sample_and_stl_log_density(p, 7, None)
+        f = torch.sum(w.to(p.device) * log_q) + 0.1 * torch.sum(samples**2)
+        (g,) = torch.autograd.grad(f, p)
+        after = ops.launch_counts()
+        results.append((f, g, {k: after[k] - before[k] for k in after}))
+    assert results[0][2] == {"ring_group_stats": 0, "stl_transpose_solve": 1,
+                             "vmem_solve_triangular": 0}
+    _assert_rel_close(results[0][0], results[1][0])
+    _assert_rel_close(results[0][1], results[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["full", "mvt"])
+def test_alpha_divergence_on_the_card_matches_cpu(cuda, kind):
+    """The CUBO value and gradient: log q forward (a lower solve) and its
+    adjoint (an upper solve), two triangular-solve launches a step."""
+    ((card, model_c), (cpu, model)), vp = _card_and_cpu(kind, 300, cuda, seed=1)
+    before = ops.launch_counts()["vmem_solve_triangular"]
+    val_c, grad_c = vt.AlphaDivergence(card, model_c, 10, alpha=2.0).value_and_grad(
+        vp.to(cuda), None)
+    assert ops.launch_counts()["vmem_solve_triangular"] == before + 2
+    val, grad = vt.AlphaDivergence(cpu, model, 10, alpha=2.0).value_and_grad(vp, None)
+    _assert_rel_close(val_c, val)
+    _assert_rel_close(grad_c, grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_dreg", [True, False])
+@pytest.mark.parametrize("kind", ["full", "mvt"])
+def test_iwelbo_on_the_card_matches_cpu(cuda, kind, use_dreg):
+    """DReG: one STL-solve launch a step; plain IWAE: two triangular-solve
+    launches (forward and adjoint)."""
+    ((card, model_c), (cpu, model)), vp = _card_and_cpu(kind, 300, cuda, seed=2)
+    before = ops.launch_counts()
+    val_c, grad_c = vt.IWELBO(card, model_c, 10, use_dreg=use_dreg).value_and_grad(
+        vp.to(cuda), None)
+    after = ops.launch_counts()
+    moved = {k: after[k] - before[k] for k in after}
+    assert moved == ({"ring_group_stats": 0, "stl_transpose_solve": 1,
+                      "vmem_solve_triangular": 0} if use_dreg else
+                     {"ring_group_stats": 0, "stl_transpose_solve": 0,
+                      "vmem_solve_triangular": 2})
+    val, grad = vt.IWELBO(cpu, model, 10, use_dreg=use_dreg).value_and_grad(vp, None)
+    _assert_rel_close(val_c, val)
+    _assert_rel_close(grad_c, grad)
+
+
+@pytest.mark.cuda
+def test_student_t_densities_on_the_card_match_cpu(cuda):
+    """MultivariateT.log_density and multivariate_t_logpdf: one
+    triangular-solve launch each."""
+    ((card, _), (cpu, _)), vp = _card_and_cpu("mvt", 300, cuda, seed=3)
+    x = torch.randn(50, 300, generator=torch.Generator().manual_seed(4),
+                    dtype=torch.float64)
+    mu, cov = cpu.mean_and_cov(vp)
+    for on_card, on_cpu in (
+            (lambda: card.log_density(vp.to(cuda), x.to(cuda)),
+             lambda: cpu.log_density(vp, x)),
+            (lambda: vt.multivariate_t_logpdf(x.to(cuda), mu.to(cuda), cov.to(cuda),
+                                              df=10.0),
+             lambda: vt.multivariate_t_logpdf(x, mu, cov, df=10.0))):
+        before = ops.launch_counts()["vmem_solve_triangular"]
+        got = on_card()
+        assert ops.launch_counts()["vmem_solve_triangular"] == before + 1
+        _assert_rel_close(got, on_cpu())

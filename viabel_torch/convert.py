@@ -8,24 +8,29 @@ JAX arrays) and never import JAX.
 import numpy as np
 import torch
 
-from .families import FullRankGaussian, MFGaussian
+from .families import LRGaussian, _CholeskyFamily, _MeanFieldLocScale
 from .utils import check_device
 
-__all__ = ["params_from_jax", "rmsprop_state_from_jax", "ring_from_jax"]
+__all__ = ["params_from_jax", "rmsprop_state_from_jax", "opt_state_from_jax",
+           "ring_from_jax"]
 
 
 def params_from_jax(var_param, approx, device=None, dtype=None):
     """A JAX flat variational parameter as a tensor for ``approx``:
-    length ``dim + dim**2`` for a full-rank (Cholesky) family, ``2 * dim``
-    for ``MFGaussian``. ``device``/``dtype`` default to the family's."""
+    length ``dim + dim**2`` for a full-rank (Cholesky) family
+    (``FullRankGaussian``, ``MultivariateT``), ``2 * dim`` for a mean-field
+    one (``MFGaussian``, ``MFStudentT``), ``2 * dim + dim * k`` for
+    ``LRGaussian``. ``device``/``dtype`` default to the family's."""
     vp = np.asarray(var_param)
     if vp.ndim != 1:
         raise ValueError(f"expected a flat parameter, got shape {vp.shape}")
     d = approx.dim
-    if isinstance(approx, FullRankGaussian):
+    if isinstance(approx, _CholeskyFamily):
         want = d + d * d
-    elif isinstance(approx, MFGaussian):
+    elif isinstance(approx, _MeanFieldLocScale):
         want = 2 * d
+    elif isinstance(approx, LRGaussian):
+        want = 2 * d + d * approx.k
     else:
         raise TypeError(f"no parameter layout known for {type(approx).__name__}")
     if vp.shape[0] != want:
@@ -37,10 +42,31 @@ def params_from_jax(var_param, approx, device=None, dtype=None):
 
 def rmsprop_state_from_jax(state, device="cuda", dtype=None):
     """A JAX ``RMSProp``/``AveragedRMSProp`` state dict as the port's."""
-    nu = np.asarray(state["avg_grad_sq"])
-    return {"avg_grad_sq": torch.as_tensor(nu.copy(), device=check_device(device),
-                                           dtype=dtype or torch.float64),
-            "t": int(np.asarray(state["t"]))}
+    return opt_state_from_jax(state, device=device, dtype=dtype)
+
+
+def opt_state_from_jax(state, dim=None, device="cuda", dtype=None):
+    """A JAX step-rule state dict as the port's, for every rule of
+    :mod:`viabel_torch.optimizers`: the moments (``momentum``,
+    ``avg_grad_sq``, ``sum_grad_sq``) as tensors, the step count ``t`` as
+    an int, and ``WindowedAdagrad``'s packed ``(W, 8, C)`` ``ring`` as the
+    port's ``(W, dim)`` ring (:func:`ring_from_jax`; ``dim`` is then
+    required)."""
+    device = check_device(device)
+    out = {}
+    for name, value in state.items():
+        if name == "t":
+            out[name] = int(np.asarray(value))
+        elif name == "ring":
+            if dim is None:
+                raise ValueError("a WindowedAdagrad state needs dim")
+            out[name] = ring_from_jax(value, dim, device=device, dtype=dtype)
+        elif name in ("momentum", "avg_grad_sq", "sum_grad_sq"):
+            out[name] = torch.as_tensor(np.asarray(value).copy(), device=device,
+                                        dtype=dtype or torch.float64)
+        else:
+            raise ValueError(f"no step-rule state entry {name!r} is known")
+    return out
 
 
 def ring_from_jax(packed, D, device="cuda", dtype=None):

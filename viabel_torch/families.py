@@ -5,10 +5,13 @@ tensor ``var_param``; sampling takes an explicit ``torch.Generator``.
 The flat layouts match the JAX package exactly, so parameters move 1:1
 between the packages (:mod:`viabel_torch.convert`):
 
-- ``MFGaussian``: ``[mu (d), log_sigma (d)]``;
-- ``FullRankGaussian``: ``[mu (d), theta (d*d, row-major)]`` with
-  ``L = tril(theta, -1) + diag(exp(diag theta))``; the strictly-upper
-  triangle of ``theta`` is unused (zero gradient, never read).
+- ``MFGaussian``, ``MFStudentT``: ``[mu (d), log_sigma (d)]``;
+- ``FullRankGaussian``, ``MultivariateT``: ``[mu (d), theta (d*d,
+  row-major)]`` with ``L = tril(theta, -1) + diag(exp(diag theta))``; the
+  strictly-upper triangle of ``theta`` is unused (zero gradient, never
+  read);
+- ``LRGaussian``: ``[mu (d), log_sigma (d), B (d*k, row-major)]`` with
+  ``Sigma = B B^T + diag(exp(2 log_sigma))``.
 
 Families carry the ``device`` and ``dtype`` their parameters live on; the
 device defaults to ``"cuda"`` and raises where no card is present.
@@ -20,13 +23,13 @@ import torch
 
 from .ops.trsm import (KERNEL_MAX_DIM, cholesky_factor, stl_transpose_solve,
                        vmem_solve_triangular)
-from .utils import check_device, deferred_names, ensure_2d
+from .utils import check_device, chisquare, deferred_names, ensure_2d
 
-__all__ = ["ApproximationFamily", "MFGaussian", "FullRankGaussian"]
+__all__ = ["ApproximationFamily", "MFGaussian", "MFStudentT", "FullRankGaussian",
+           "MultivariateT", "LRGaussian"]
 
 #: families of the JAX package not ported yet, by ROADMAP.md item
-NOT_PORTED = {"MFStudentT": 9, "MultivariateT": 9, "LRGaussian": 9,
-              "NeuralNet": 9, "NVPFlow": 9}
+NOT_PORTED = {"NeuralNet": "9b", "NVPFlow": "9b"}
 __getattr__ = deferred_names(__name__, NOT_PORTED)
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -178,11 +181,15 @@ class ApproximationFamily:
         raise NotImplementedError()
 
 
-class MFGaussian(ApproximationFamily):
-    """Mean-field Gaussian, ``var_param = [mu, log_sigma]``."""
+class _MeanFieldLocScale(ApproximationFamily):
+    """The mean-field ``[mu, log_sigma]`` layout. Subclasses define
+    ``mean_and_stdevs(var_param) -> (mean, stdevs)``, the O(d) hook of
+    ExclusiveKL's control-variate estimators."""
 
-    def __init__(self, dim, base_sampler=None, device="cuda", dtype=None):
-        super().__init__(dim, 2 * dim, True, True, device, dtype, base_sampler)
+    def __init__(self, dim, supports_entropy, supports_kl, device, dtype,
+                 base_sampler=None):
+        super().__init__(dim, 2 * dim, supports_entropy, supports_kl, device,
+                         dtype, base_sampler)
 
     def unpack(self, var_param):
         return var_param[: self.dim], var_param[self.dim:]
@@ -190,6 +197,13 @@ class MFGaussian(ApproximationFamily):
     def init_param(self):
         # mu = 0, log_sigma = 2 (reference approximations.py:207-210)
         return torch.cat([self._zeros(self.dim), 2.0 + self._zeros(self.dim)])
+
+
+class MFGaussian(_MeanFieldLocScale):
+    """Mean-field Gaussian, ``var_param = [mu, log_sigma]``."""
+
+    def __init__(self, dim, base_sampler=None, device="cuda", dtype=None):
+        super().__init__(dim, True, True, device, dtype, base_sampler)
 
     def sample(self, var_param, n_samples, generator):
         mu, log_sigma = self.unpack(var_param)
@@ -220,6 +234,10 @@ class MFGaussian(ApproximationFamily):
         mu, log_sigma = self.unpack(var_param)
         return mu, torch.diag(torch.exp(2.0 * log_sigma))
 
+    def mean_and_stdevs(self, var_param):
+        mu, log_sigma = self.unpack(var_param)
+        return mu, torch.exp(log_sigma)
+
     def _pth_moment(self, var_param, p):
         _, log_sigma = self.unpack(var_param)
         variances = torch.exp(2.0 * log_sigma)
@@ -230,6 +248,81 @@ class MFGaussian(ApproximationFamily):
 
     def supports_pth_moment(self, p):
         return p in (2, 4)
+
+
+def _check_df(df):
+    if df <= 2:
+        raise ValueError("df must be greater than 2")
+    return float(df)
+
+
+def _t_log_norm(df, d):
+    """The log normaliser of a d-variate Student-t with unit scale."""
+    return (math.lgamma(0.5 * (df + d)) - math.lgamma(0.5 * df)
+            - 0.5 * d * math.log(math.pi * df))
+
+
+class MFStudentT(_MeanFieldLocScale):
+    """Mean-field Student-t, ``var_param = [mu, log_sigma]``.
+
+    Each coordinate is ``mu + sigma t`` with ``t = z / sqrt(chi2/df)``
+    drawn per coordinate from the generator (:func:`utils.chisquare`). Like
+    the JAX package, the entropy drops df-only constants (reference
+    approximations.py:276-279), and it has no base-sampler hook.
+    """
+
+    def __init__(self, dim, df, device="cuda", dtype=None):
+        self._df = _check_df(df)
+        super().__init__(dim, True, False, device, dtype)
+
+    @property
+    def df(self):
+        return self._df
+
+    def sample(self, var_param, n_samples, generator):
+        mu, log_sigma = self.unpack(var_param)
+        size = (n_samples, self.dim)
+        z = torch.randn(size, generator=generator, dtype=var_param.dtype,
+                        device=var_param.device)
+        chi2 = chisquare(generator, self.df, size, var_param.dtype, var_param.device)
+        return mu + torch.exp(log_sigma) * (z / torch.sqrt(chi2 / self.df))
+
+    def _entropy(self, var_param):
+        _, log_sigma = self.unpack(var_param)
+        return torch.sum(log_sigma)
+
+    def log_density(self, var_param, x):
+        squeeze = x.dim() == 1
+        x = ensure_2d(x)
+        mu, log_sigma = self.unpack(var_param)
+        df = self.df
+        z = (x - mu) / torch.exp(log_sigma)
+        lp_1d = (_t_log_norm(df, 1) - log_sigma
+                 - 0.5 * (df + 1.0) * torch.log1p(z**2 / df))
+        out = torch.sum(lp_1d, dim=-1)
+        return out[0] if squeeze else out
+
+    def mean_and_cov(self, var_param):
+        mu, log_sigma = self.unpack(var_param)
+        return mu, self.df / (self.df - 2.0) * torch.diag(torch.exp(2.0 * log_sigma))
+
+    def mean_and_stdevs(self, var_param):
+        mu, log_sigma = self.unpack(var_param)
+        return mu, math.sqrt(self.df / (self.df - 2.0)) * torch.exp(log_sigma)
+
+    def _pth_moment(self, var_param, p):
+        df = self.df
+        _, log_sigma = self.unpack(var_param)
+        scales = torch.exp(log_sigma)
+        c = df / (df - 2.0)
+        if p == 2:
+            return c * torch.sum(scales**2)
+        # p == 4 (reference approximations.py:294-304)
+        return c**2 * (2.0 * (df - 1.0) / (df - 4.0) * torch.sum(scales**4)
+                       + torch.sum(scales**2) ** 2)
+
+    def supports_pth_moment(self, p):
+        return p in (2, 4) and p < self.df
 
 
 class _CholeskyFamily(ApproximationFamily):
@@ -356,6 +449,254 @@ class FullRankGaussian(_CholeskyFamily):
         if p == 2:
             return trace
         frob_sq = torch.sum((L.T @ L) ** 2)  # ||Sigma||_F^2 = ||L^T L||_F^2
+        return 2.0 * frob_sq + trace**2
+
+    def supports_pth_moment(self, p):
+        return p in (2, 4)
+
+
+class MultivariateT(_CholeskyFamily):
+    """Full-rank multivariate Student-t, ``Sigma = L L^T`` (scale matrix);
+    samples are ``mu + (z @ L.T) / sqrt(chi2(df)/df)``.
+
+    ``base_sampler`` (integer ``df`` only): one joint ``(dim + df)``-wide
+    base block per draw, whose first ``dim`` coordinates form ``z`` and
+    whose last ``df`` form the chi-square mixing variable as the exact sum
+    of their squares (the JAX package's QMC route, families.py:644-651).
+    Without one, ``z`` and the chi-square come from the generator.
+    """
+
+    def __init__(self, dim, df, base_sampler=None, device="cuda", dtype=None):
+        df = _check_df(df)
+        if base_sampler is not None and df != int(df):
+            raise ValueError(
+                "QMC base sampling for MultivariateT needs an integer df "
+                "(the chi-square mixing variable is built exactly as a sum "
+                f"of df squared base normals); got df={df}")
+        self._df = df
+        super().__init__(dim, True, False, device, dtype, base_sampler)
+
+    @property
+    def df(self):
+        return self._df
+
+    def init_param(self):
+        # Sigma = 10 I (reference approximations.py:337-340)
+        return self._init_chol_param(0.5 * math.log(10.0))
+
+    def _draw(self, var_param, n_samples, generator):
+        """``(samples, w, log_diag, L)`` with ``w = z / s = L^{-1}(x - mu)``."""
+        mu, log_diag, L = self.unpack(var_param)
+        d, dtype, device = self.dim, var_param.dtype, var_param.device
+        if self._base_sampler is None:
+            z = torch.randn((n_samples, d), generator=generator, dtype=dtype,
+                            device=device)
+            chi2 = chisquare(generator, self.df, (n_samples,), dtype, device)
+        else:
+            joint = self._base_normal(generator, n_samples, d + int(self.df),
+                                      dtype, device)
+            z = joint[:, :d]
+            chi2 = torch.sum(joint[:, d:] ** 2, dim=-1)
+        s = torch.sqrt(chi2 / self.df)[:, None]
+        return mu + (z @ L.T) / s, z / s, log_diag, L
+
+    def sample(self, var_param, n_samples, generator):
+        return self._draw(var_param, n_samples, generator)[0]
+
+    def sample_and_entropy(self, var_param, n_samples, generator):
+        samples, _, log_diag, _ = self._draw(var_param, n_samples, generator)
+        return samples, torch.sum(log_diag)
+
+    def sample_and_stl_log_density(self, var_param, n_samples, generator):
+        """The whitened deviation equals ``w = z / s`` by construction, so
+        the value needs no solve; the score direction ``(df + d)/(df +
+        maha) L^{-T} w`` costs one, the STL solve kernel on a CUDA tensor
+        (:func:`_stl_whiten_T`)."""
+        d, df = self.dim, self.df
+        samples, w, log_diag, L = self._draw(var_param, n_samples, generator)
+        w_s = w.detach()
+        maha = torch.sum(w_s**2, dim=-1)
+        theta_s = var_param.detach()[d:].view(d, d)
+        v = _stl_whiten_T(theta_s, L.detach(), w_s) * ((df + d) / (df + maha))[:, None]
+        const = (_t_log_norm(df, d) - torch.sum(log_diag.detach())
+                 - 0.5 * (df + d) * torch.log1p(maha / df))
+        return samples, _STLAttach.apply(samples, v, const)
+
+    def _entropy(self, var_param):
+        # 0.5 log det Sigma, dropping df-only constants (reference 351-354)
+        _, log_diag, _ = self.unpack(var_param)
+        return torch.sum(log_diag)
+
+    def log_density(self, var_param, x):
+        squeeze = x.dim() == 1
+        mu, log_diag, L = self.unpack(var_param)
+        d, df = self.dim, self.df
+        maha = torch.sum(self._chol_whiten(L, x, mu) ** 2, dim=0)
+        out = (_t_log_norm(df, d) - torch.sum(log_diag)
+               - 0.5 * (df + d) * torch.log1p(maha / df))
+        return out[0] if squeeze else out
+
+    def mean_and_cov(self, var_param):
+        mu, _, L = self.unpack(var_param)
+        return mu, self.df / (self.df - 2.0) * (L @ L.T)
+
+    def _pth_moment(self, var_param, p):
+        df = self.df
+        _, _, L = self.unpack(var_param)
+        trace = torch.sum(L**2)
+        c = df / (df - 2.0)
+        if p == 2:
+            return c * trace
+        frob_sq = torch.sum((L.T @ L) ** 2)
+        return c**2 * (2.0 * (df - 1.0) / (df - 4.0) * frob_sq + trace**2)
+
+    def supports_pth_moment(self, p):
+        return p in (2, 4) and p < self.df
+
+
+class LRGaussian(ApproximationFamily):
+    """Low-rank-plus-diagonal Gaussian, ``Sigma = B B^T + diag(exp(2
+    log_sigma))``, with every determinant and solve in the k x k
+    capacitance matrix ``C = I_k + B^T D^{-1} B`` (Woodbury and the
+    matrix-determinant lemma). ``k`` is required, as in the JAX package.
+
+    Departure: the JAX ``init_param`` draws ``B ~ N(0, 1)`` from
+    ``jax.random.PRNGKey(1)``, which torch cannot reproduce; here ``B`` is
+    drawn from a torch generator seeded with 1 (or the one passed), so
+    the two packages start from different ``B``. Carry a JAX start across
+    with :func:`viabel_torch.convert.params_from_jax`.
+    """
+
+    def __init__(self, dim, k, base_sampler=None, device="cuda", dtype=None):
+        self._k = int(k)
+        super().__init__(dim, 2 * dim + dim * self._k, True, True, device, dtype,
+                         base_sampler)
+
+    @property
+    def k(self):
+        return self._k
+
+    def _base_z_eps(self, generator, n_samples, dtype, device):
+        """Base draws ``(z (n, k), eps (n, d))``; under a base sampler both
+        blocks come from one joint ``(k + dim)``-wide draw."""
+        if self._base_sampler is None:
+            z = torch.randn((n_samples, self._k), generator=generator, dtype=dtype,
+                            device=device)
+            eps = torch.randn((n_samples, self.dim), generator=generator,
+                              dtype=dtype, device=device)
+            return z, eps
+        joint = self._base_normal(generator, n_samples, self._k + self.dim, dtype,
+                                  device)
+        return joint[:, : self._k], joint[:, self._k:]
+
+    def unpack(self, var_param):
+        d, k = self.dim, self._k
+        return var_param[:d], var_param[d: 2 * d], var_param[2 * d:].view(d, k)
+
+    def init_param(self, generator=None):
+        # mu = 0, log_sigma = 1, B ~ N(0, 1) (reference 628-632)
+        if generator is None:
+            generator = torch.Generator(self._device).manual_seed(1)
+        d = self.dim
+        B = torch.randn(d * self._k, generator=generator, dtype=self._dtype,
+                        device=self._device)
+        return torch.cat([self._zeros(d), 1.0 + self._zeros(d), B])
+
+    def sample(self, var_param, n_samples, generator):
+        mu, log_sigma, B = self.unpack(var_param)
+        z, eps = self._base_z_eps(generator, n_samples, var_param.dtype,
+                                  var_param.device)
+        return mu + z @ B.T + torch.exp(log_sigma) * eps
+
+    def sample_and_stl_log_density(self, var_param, n_samples, generator):
+        """Fused STL: the score direction ``Sigma^{-1}(x - mu)`` under
+        detached parameters through the Woodbury solve, attached to the
+        samples only; no d x d factorisation."""
+        mu, log_sigma, B = self.unpack(var_param)
+        z, eps = self._base_z_eps(generator, n_samples, var_param.dtype,
+                                  var_param.device)
+        samples = mu + z @ B.T + torch.exp(log_sigma) * eps
+        ls_s, B_s = log_sigma.detach(), B.detach()
+        dev_s = (samples - mu).detach()                  # (n, d)
+        sol = self._sigma_solve(ls_s, B_s, dev_s.T)      # (d, n)
+        quad = torch.sum(dev_s.T * sol, dim=0)
+        const = -0.5 * (self.dim * _LOG_2PI + self._logdet_sigma(ls_s, B_s) + quad)
+        return samples, _STLAttach.apply(samples, sol.T, const)
+
+    @staticmethod
+    def _capacitance(log_sigma, B):
+        """``C = I_k + B^T D^{-1} B`` with ``D = diag(exp(2 log_sigma))``."""
+        D_inv = torch.exp(-2.0 * log_sigma)
+        C = torch.eye(B.shape[1], dtype=B.dtype, device=B.device) + (B.T * D_inv) @ B
+        return C, D_inv
+
+    @staticmethod
+    def _spd_solve(C, rhs):
+        """``C^{-1} rhs`` by a Cholesky factor and two k x k triangular
+        solves; ``rhs`` is ``(k, n)``."""
+        Lc = torch.linalg.cholesky(C)
+        y = torch.linalg.solve_triangular(Lc, rhs, upper=False)
+        return torch.linalg.solve_triangular(Lc.T, y, upper=True)
+
+    @classmethod
+    def _logdet_sigma(cls, log_sigma, B):
+        """``log det(B B^T + D)`` via the matrix-determinant lemma."""
+        C, _ = cls._capacitance(log_sigma, B)
+        Lc = torch.linalg.cholesky(C)
+        return 2.0 * torch.sum(log_sigma) + 2.0 * torch.sum(torch.log(torch.diagonal(Lc)))
+
+    @classmethod
+    def _sigma_solve(cls, log_sigma, B, v):
+        """``Sigma^{-1} v`` via Woodbury; ``v`` has shape ``(d,)`` or ``(d, n)``."""
+        if v.dim() == 1:
+            return cls._sigma_solve(log_sigma, B, v[:, None])[:, 0]
+        C, D_inv = cls._capacitance(log_sigma, B)
+        Dv = D_inv[:, None] * v
+        w = cls._spd_solve(C, B.T @ Dv)
+        return Dv - D_inv[:, None] * (B @ w)
+
+    def _entropy(self, var_param):
+        _, log_sigma, B = self.unpack(var_param)
+        return 0.5 * self.dim * (_LOG_2PI + 1.0) + 0.5 * self._logdet_sigma(log_sigma, B)
+
+    def _kl(self, var_param0, var_param1):
+        mu0, ls0, B0 = self.unpack(var_param0)
+        mu1, ls1, B1 = self.unpack(var_param1)
+        logdet_diff = self._logdet_sigma(ls1, B1) - self._logdet_sigma(ls0, B0)
+        dmu = mu0 - mu1
+        maha = dmu @ self._sigma_solve(ls1, B1, dmu)
+        # tr(Sigma1^{-1} Sigma0) = tr(Sigma1^{-1} B0 B0^T) + tr(Sigma1^{-1} D0)
+        trace_lr = torch.sum(self._sigma_solve(ls1, B1, B0) * B0)
+        # the diagonal of Sigma1^{-1} from the Woodbury form, never formed
+        C1, D1_inv = self._capacitance(ls1, B1)
+        W = self._spd_solve(C1, B1.T * D1_inv)  # (k, d)
+        diag_S1inv = D1_inv - torch.sum((B1.T * D1_inv) * W, dim=0)
+        trace_diag = torch.sum(diag_S1inv * torch.exp(2.0 * ls0))
+        return 0.5 * (logdet_diff - self.dim + maha + trace_lr + trace_diag)
+
+    def log_density(self, var_param, x):
+        squeeze = x.dim() == 1
+        x = ensure_2d(x)
+        mu, log_sigma, B = self.unpack(var_param)
+        dev = x - mu  # (n, d)
+        quad = torch.sum(dev.T * self._sigma_solve(log_sigma, B, dev.T), dim=0)
+        out = -0.5 * (self.dim * _LOG_2PI + self._logdet_sigma(log_sigma, B) + quad)
+        return out[0] if squeeze else out
+
+    def mean_and_cov(self, var_param):
+        mu, log_sigma, B = self.unpack(var_param)
+        return mu, B @ B.T + torch.diag(torch.exp(2.0 * log_sigma))
+
+    def _pth_moment(self, var_param, p):
+        _, log_sigma, B = self.unpack(var_param)
+        d_var = torch.exp(2.0 * log_sigma)
+        trace = torch.sum(d_var) + torch.sum(B**2)
+        if p == 2:
+            return trace
+        # ||Sigma||_F^2 = ||B^T B||_F^2 + 2 sum_i d_i ||B_i||^2 + sum_i d_i^2
+        frob_sq = (torch.sum((B.T @ B) ** 2)
+                   + 2.0 * torch.sum(d_var * torch.sum(B**2, dim=1))
+                   + torch.sum(d_var**2))
         return 2.0 * frob_sq + trace**2
 
     def supports_pth_moment(self, p):

@@ -30,7 +30,7 @@ from .families import MFGaussian
 from .hmc import hmc_sample
 from .mc_diagnostics import (ess_and_mcse_windowed, ring_window_mean,
                              split_rhat_ring_windows)
-from .optimizers import (AveragedRMSProp, Optimizer, RMSProp,
+from .optimizers import (AveragedAdam, AveragedRMSProp, Optimizer, RMSProp,
                          StochasticGradientOptimizer, default_generator)
 from .utils import Timer, not_ported
 
@@ -622,7 +622,7 @@ class RAABBVI(FASO):
             raise ValueError('"rho" must be between zero and one')
 
     def _averaged_sgo(self):
-        return isinstance(self._sgo, AveragedRMSProp)
+        return isinstance(self._sgo, (AveragedRMSProp, AveragedAdam))
 
     def weighted_linear_regression(self, y, x, s=9.0, a=0.25, n_chains=4,
                                    generator=None, device=HMC_DEVICE):

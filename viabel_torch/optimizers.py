@@ -8,14 +8,8 @@ in a ``(window, D)`` ring tensor.
 
 import torch
 
-from .utils import deferred_names
-
 __all__ = ["Optimizer", "StochasticGradientOptimizer", "RMSProp",
-           "AveragedRMSProp"]
-
-#: step rules of the JAX package not ported yet, by ROADMAP.md item
-NOT_PORTED = {"Adam": 4, "AveragedAdam": 4, "Adagrad": 4, "WindowedAdagrad": 4}
-__getattr__ = deferred_names(__name__, NOT_PORTED)
+           "AveragedRMSProp", "Adam", "AveragedAdam", "Adagrad", "WindowedAdagrad"]
 
 
 def default_generator(device):
@@ -151,3 +145,100 @@ class AveragedRMSProp(StochasticGradientOptimizer):
         else:
             direction = grad / torch.sqrt(self._jitter + torch.sum(nu))
         return direction, {"avg_grad_sq": nu, "t": t}
+
+
+class Adam(StochasticGradientOptimizer):
+    """Adam (Kingma & Ba 2015); like the reference, the moments are seeded
+    with the first gradient and there is no bias correction (reference
+    optimization.py:260-326)."""
+
+    def __init__(self, learning_rate, *, beta1=0.9, beta2=0.999, jitter=1e-8,
+                 iterate_avg_prop=0.2, diagnostics=False):
+        self._beta1 = float(beta1)
+        self._beta2 = float(beta2)
+        self._jitter = float(jitter)
+        super().__init__(learning_rate, iterate_avg_prop=iterate_avg_prop,
+                         diagnostics=diagnostics)
+
+    def init_state(self, var_param):
+        return {"momentum": torch.zeros_like(var_param),
+                "avg_grad_sq": torch.zeros_like(var_param), "t": 0}
+
+    def descent_direction(self, grad, state):
+        m, nu = state["momentum"], state["avg_grad_sq"]
+        if state["t"] == 0:
+            m, nu = grad, grad**2
+        m = self._beta1 * m + (1.0 - self._beta1) * grad
+        nu = self._beta2 * nu + (1.0 - self._beta2) * grad**2
+        direction = m / torch.sqrt(self._jitter + nu)
+        return direction, {"momentum": m, "avg_grad_sq": nu, "t": state["t"] + 1}
+
+
+class AveragedAdam(StochasticGradientOptimizer):
+    """Averaged Adam (reference optimization.py:328-396): Adam's momentum
+    (seeded with the first gradient) over AveragedRMSProp's ``beta_k = 1 -
+    1/k`` second moment."""
+
+    def __init__(self, learning_rate, *, beta1=0.9, jitter=1e-8,
+                 diagnostics=False, component_wise=True):
+        self._beta1 = float(beta1)
+        self._jitter = float(jitter)
+        self._component_wise = bool(component_wise)
+        super().__init__(learning_rate, diagnostics=diagnostics)
+
+    def init_state(self, var_param):
+        return {"momentum": torch.zeros_like(var_param),
+                "avg_grad_sq": torch.zeros_like(var_param), "t": 0}
+
+    def descent_direction(self, grad, state):
+        m = grad if state["t"] == 0 else state["momentum"]
+        m = self._beta1 * m + (1.0 - self._beta1) * grad
+        t = state["t"] + 1
+        beta2 = 1.0 - 1.0 / t
+        nu = beta2 * state["avg_grad_sq"] + (1.0 - beta2) * grad**2
+        if self._component_wise:
+            direction = m / torch.sqrt(self._jitter + nu)
+        else:
+            direction = m / torch.sqrt(self._jitter + torch.sum(nu))
+        return direction, {"momentum": m, "avg_grad_sq": nu, "t": t}
+
+
+class Adagrad(StochasticGradientOptimizer):
+    """Adagrad (Duchi et al. 2011; reference optimization.py:398-433)."""
+
+    def __init__(self, learning_rate, *, weight_decay=0.0, jitter=1e-8,
+                 iterate_avg_prop=0.2, diagnostics=False):
+        self._jitter = float(jitter)
+        super().__init__(learning_rate, weight_decay=weight_decay,
+                         iterate_avg_prop=iterate_avg_prop, diagnostics=diagnostics)
+
+    def init_state(self, var_param):
+        return {"sum_grad_sq": torch.zeros_like(var_param)}
+
+    def descent_direction(self, grad, state):
+        s = state["sum_grad_sq"] + grad**2
+        return grad / torch.sqrt(self._jitter + s), {"sum_grad_sq": s}
+
+
+class WindowedAdagrad(StochasticGradientOptimizer):
+    """Windowed Adagrad (PyMC3's default; reference optimization.py:435-476):
+    the mean of the last ``window_size`` squared gradients, kept in a
+    ``(window_size, D)`` ring that each step writes in place (the state
+    passed in is consumed)."""
+
+    def __init__(self, learning_rate, *, weight_decay=0.0, window_size=10,
+                 jitter=1e-8, diagnostics=False):
+        self._window_size = int(window_size)
+        self._jitter = float(jitter)
+        super().__init__(learning_rate, weight_decay=weight_decay,
+                         diagnostics=diagnostics)
+
+    def init_state(self, var_param):
+        return {"ring": var_param.new_zeros((self._window_size, var_param.shape[0])),
+                "t": 0}
+
+    def descent_direction(self, grad, state):
+        ring, t = state["ring"], state["t"]
+        ring[t % self._window_size] = grad**2
+        mean_sq = torch.sum(ring, dim=0) / min(t + 1, self._window_size)
+        return grad / torch.sqrt(self._jitter + mean_sq), {"ring": ring, "t": t + 1}

@@ -6,11 +6,13 @@ compilation cache) have no counterpart: the port keeps plain ``(R, D)``
 rings and runs eagerly.
 """
 
+import math
 import time
 
 import torch
 
-__all__ = ["Timer", "ensure_2d", "not_ported", "deferred_names", "check_device"]
+__all__ = ["Timer", "ensure_2d", "not_ported", "deferred_names", "check_device",
+           "standard_gamma", "chisquare"]
 
 
 class Timer:
@@ -44,6 +46,56 @@ def check_device(device):
         raise RuntimeError(f"device {str(device)!r} is not available (no CUDA "
                            "card); pass device=\"cpu\" to run on the CPU")
     return device
+
+
+def standard_gamma(generator, shape_param, size, dtype, device):
+    """``Gamma(shape_param, 1)`` draws of shape ``size`` from ``generator``.
+
+    Marsaglia & Tsang (2000), vectorised: every round proposes for all
+    lanes and keeps the first acceptance of each, until every lane has one
+    (one host read of a flag a round; more than 95% of proposals are
+    accepted for a shape of at least 1). A shape below 1 draws
+    ``Gamma(shape + 1) * U^(1/shape)``. ``torch._standard_gamma`` and
+    ``torch.distributions`` take no generator, so they are not used.
+    """
+    a = float(shape_param)
+    if not a > 0.0:
+        raise ValueError(f"the gamma shape must be positive, got {a}")
+    boost = a < 1.0
+    dd = (a + 1.0 if boost else a) - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * dd)
+    out = torch.zeros(size, dtype=dtype, device=device)
+    pending = torch.ones(size, dtype=torch.bool, device=device)
+    while True:
+        x = torch.randn(size, generator=generator, dtype=dtype, device=device)
+        # 1 - rand lies in (0, 1], so its log is finite
+        u = 1.0 - torch.rand(size, generator=generator, dtype=dtype, device=device)
+        v = (1.0 + c * x) ** 3
+        ok = (v > 0) & (torch.log(u) < 0.5 * x**2 + dd - dd * v
+                        + dd * torch.log(torch.clamp(v, min=torch.finfo(dtype).tiny)))
+        take = pending & ok
+        out = torch.where(take, dd * v, out)
+        pending = pending & ~ok
+        if not bool(pending.any()):
+            break
+    if boost:
+        u = 1.0 - torch.rand(size, generator=generator, dtype=dtype, device=device)
+        out = out * u ** (1.0 / a)
+    return out
+
+
+def chisquare(generator, df, size, dtype, device):
+    """``chi2(df)`` draws of shape ``size`` from ``generator``: for an
+    integer ``df`` the exact sum of ``df`` squared standard normals (what
+    the JAX package's QMC path builds, families.py:644-651), else
+    ``2 Gamma(df / 2)`` by :func:`standard_gamma`."""
+    df = float(df)
+    size = tuple(size)
+    if df == int(df):
+        z = torch.randn(size + (int(df),), generator=generator, dtype=dtype,
+                        device=device)
+        return torch.sum(z**2, dim=-1)
+    return 2.0 * standard_gamma(generator, 0.5 * df, size, dtype, device)
 
 
 def not_ported(what, item):
