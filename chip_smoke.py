@@ -4,7 +4,10 @@ then vi_diagnostics on its result (the front door), the error-bounds branch
 at width, and the README quickstart; then the Student-t family's FASO run
 and its diagnostics, the CUBO and IWELBO objectives' training steps, a
 short run of each family, control-variate estimator and step rule that
-carries no kernel, and the kernels' new paths in float64 against the CPU.
+carries no kernel, and the kernels' new paths in float64 against the CPU;
+then DISInclusiveKL's two training modes, a FASO run stopped, written to
+a checkpoint, read back and resumed against the uninterrupted run, and
+the neural families (NVPFlow, a square NeuralNet).
 
     python3 chip_smoke.py
 
@@ -18,9 +21,11 @@ time the card could take for the same work.
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -44,6 +49,12 @@ FLAGSHIP_LR = 0.001
 MEAN_FIELD_LR = 0.01  # bbvi's default, for the families without a dense factor
 #: float64, card against CPU, on the kernels' new paths
 PATH_RTOL = 1e-9
+#: float64, card against CPU, one DIS step of each mode
+DIS_RTOL = 1e-12
+DIS_S, DIS_ESS = 100, 50  # DISInclusiveKL's draws and ESS target at d = 1000
+DIS_ITERS, DIS_PLAIN_ITERS = 1000, 300  # [dis] runs (a) and (b)
+RESUME_AT, RESUME_ITERS = 400, 1000     # [resume]
+FLOW_ITERS, NET_ITERS = 300, 100        # [flows]
 N_DIAG_SAMPLES = 100000  # vi_diagnostics' default n_samples
 #: NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, and FLOP/s outside the
 #: tensor cores by element type
@@ -285,11 +296,15 @@ def phase_tri_solve(results):
     from viabel_torch.ops import vmem_solve_triangular, vmem_solve_triangular_plain
     gen = torch.Generator(DEVICE).manual_seed(8)
     d0 = FLAGSHIP_DIM
-    shapes = [(8, 3), (130, 5), (300, 7), (d0, 10), (d0, 1), (d0, d0), (d0, 4096),
-              (d0, N_DIAG_SAMPLES), (1536, 16)]
-    # (d0, 10) upper is the adjoint in every CUBO and plain IWELBO step
-    timed = {(d0, 10, True), (d0, 10, False), (d0, d0, True), (d0, 4096, True),
-             (d0, 4096, False), (d0, N_DIAG_SAMPLES, True)}
+    shapes = [(8, 3), (130, 5), (300, 7), (d0, 10), (d0, 1), (d0, DIS_ESS),
+              (d0, DIS_S), (d0, d0), (d0, 4096), (d0, N_DIAG_SAMPLES), (1536, 16)]
+    # (d0, 10) upper is the adjoint in every CUBO and plain IWELBO step;
+    # DIS runs (d0, S) lower (its refresh, or log q and then its adjoint
+    # upper without resampling) and (d0, ess_target) lower and upper (the
+    # resampled loss and its adjoint)
+    timed = {(d0, 10, True), (d0, 10, False), (d0, DIS_S, True), (d0, DIS_S, False),
+             (d0, DIS_ESS, True), (d0, DIS_ESS, False), (d0, d0, True),
+             (d0, 4096, True), (d0, 4096, False), (d0, N_DIAG_SAMPLES, True)}
     for dtype in (torch.float64, torch.float32):
         for d, S in shapes:
             for lower in (True, False):
@@ -645,18 +660,24 @@ def phase_families():
         res, wall, launches = timed_run(lambda: opt.optimize(
             LOOP_ITERS, objective, objective.approx.init_param(), generator=gen))
         report_run(f"[families] [{name}]", res, wall, launches)
-    raabbvi = vt.RAABBVI(vt.AveragedAdam(MEAN_FIELD_LR, diagnostics=False), W_min=100,
-                         k_check=50)
-    objective = mf_kl()
-    gen = torch.Generator(DEVICE).manual_seed(30)
-    res, wall, launches = timed_run(lambda: raabbvi.optimize(
-        2 * LOOP_ITERS, objective, objective.approx.init_param(), generator=gen))
-    report_run("[families] [raabbvi_averaged_adam]", res, wall, launches)
-    log(f"[families] [raabbvi_averaged_adam] averaged_branch={raabbvi._averaged_sgo()} "
-        f"k_conv={res['k_conv']} k_mcse={res['k_mcse']} "
-        f"learning_rates={np.asarray(res.get('learning_rate_hist', [])).tolist()}")
-    if not raabbvi._averaged_sgo():
-        raise AssertionError("RAABBVI did not take the averaged branch for AveragedAdam")
+    # RAABBVI over AveragedAdam, then the same with the warm start: a first
+    # round of plain RMSProp under a default FASO
+    for name, seed, warm in (("raabbvi_averaged_adam", 30, False),
+                             ("raabbvi_init_rmsprop", 31, True)):
+        raabbvi = vt.RAABBVI(vt.AveragedAdam(MEAN_FIELD_LR, diagnostics=False),
+                             W_min=100, k_check=50, init_rmsprop=warm)
+        objective = mf_kl()
+        gen = torch.Generator(DEVICE).manual_seed(seed)
+        res, wall, launches = timed_run(lambda: raabbvi.optimize(
+            2 * LOOP_ITERS, objective, objective.approx.init_param(), generator=gen))
+        report_run(f"[families] [{name}]", res, wall, launches)
+        log(f"[families] [{name}] averaged_branch={raabbvi._averaged_sgo()} "
+            f"k_conv={res['k_conv']} k_mcse={res['k_mcse']} "
+            f"learning_rates={np.asarray(res.get('learning_rate_hist', [])).tolist()}")
+        if not raabbvi._averaged_sgo():
+            raise AssertionError("RAABBVI did not take the averaged branch for AveragedAdam")
+        if res["timed_out"] or launches["ring_group_stats"] <= 0:
+            raise AssertionError(f"[families] [{name}] timed out or ran no R-hat check")
 
 
 class TableNormal:
@@ -725,6 +746,224 @@ def phase_paths_f64():
                                  f"expected {expect}")
 
 
+def dis_objective(use_resampling, device=None, dtype=torch.float32, **kw):
+    """DISInclusiveKL over FullRankGaussian(1000) on the flagship model,
+    S = 100 draws, ESS target 50, an MFGaussian(1000) temper prior at zero
+    parameters."""
+    import viabel_torch as vt
+    d, device = FLAGSHIP_DIM, device or DEVICE
+    family = dict(device=device, dtype=dtype)
+    approx = vt.FullRankGaussian(d, base_sampler=kw.pop("base_sampler", None), **family)
+    return vt.DISInclusiveKL(approx, flagship_model(device=device, dtype=dtype), DIS_S,
+                             ess_target=DIS_ESS, temper_prior=vt.MFGaussian(d, **family),
+                             temper_prior_params=torch.zeros(2 * d, **family),
+                             use_resampling=use_resampling, **kw)
+
+
+def phase_dis():
+    """DISInclusiveKL at the flagship width in its two modes: (a) with
+    resampling every step through bbvi's FASO route, three triangular
+    solves a step (the refresh's log q at (1000, 100), then the resampled
+    loss at (1000, 50) and its adjoint) and the ring statistics in the
+    checks; (b) without resampling under RMSProp, two a step (log q at
+    (1000, 100) and its adjoint)."""
+    import viabel_torch as vt
+    objective = dis_objective(True)
+    gen = torch.Generator(DEVICE).manual_seed(40)
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, launches = timed_run(lambda: vt.bbvi(
+        FLAGSHIP_DIM, objective=objective, n_iters=DIS_ITERS, learning_rate=FLAGSHIP_LR,
+        fixed_lr=True, RMS_kwargs=dict(diagnostics=False),
+        FASO_kwargs=dict(max_history=600), generator=gen))
+    steps = report_run("[dis] [resampling]", res, wall, launches)
+    eps = float(res["resume_state"]["obj_state"]["eps"])
+    log(f"[dis] [resampling] final_eps={eps:.6g} k_conv={res['k_conv']} "
+        f"num_mc_samples={objective.num_mc_samples} "
+        f"escalations={res['mc_escalation_history'].tolist()} "
+        f"max_memory_allocated_bytes={torch.cuda.max_memory_allocated()}")
+    if launches["vmem_solve_triangular"] != 3 * steps or launches["stl_transpose_solve"]:
+        raise AssertionError(f"[dis] [resampling] launches {launches} in {steps} steps")
+    if launches["ring_group_stats"] <= 0:
+        raise AssertionError("[dis] [resampling] the FASO checks never ran ring_group_stats")
+    if not 0.0 <= eps <= 1.0:
+        raise AssertionError(f"[dis] [resampling] eps {eps} outside [0, 1]")
+    del res
+    torch.cuda.empty_cache()
+    objective = dis_objective(False)
+    gen = torch.Generator(DEVICE).manual_seed(41)
+    res, wall, launches = timed_run(lambda: vt.RMSProp(FLAGSHIP_LR).optimize(
+        DIS_PLAIN_ITERS, objective, objective.approx.init_param(), generator=gen))
+    steps = report_run("[dis] [no_resampling]", res, wall, launches)
+    eps = float(res["obj_state"]["eps"])
+    log(f"[dis] [no_resampling] final_eps={eps:.6g}")
+    if launches["vmem_solve_triangular"] != 2 * steps or launches["stl_transpose_solve"]:
+        raise AssertionError(f"[dis] [no_resampling] launches {launches} in {steps} steps")
+
+
+class FixedChoice:
+    """A resampling hook returning the same indices on every device."""
+
+    def __init__(self, idx):
+        self.idx = idx
+
+    def choice(self, generator, p, n):
+        return self.idx[:n].to(p.device)
+
+
+def phase_dis_f64():
+    """One DIS step of each mode at d = 1000 in float64, card against CPU,
+    with the base draws and the resampling indices injected: value and
+    gradient by max-norm relative error, and kernel 3's launches."""
+    d = FLAGSHIP_DIM
+    gen = torch.Generator().manual_seed(42)
+    sampler = TableNormal(torch.randn(DIS_S, d, generator=gen, dtype=torch.float64))
+    idx = torch.randint(0, DIS_S, (DIS_ESS,), generator=gen)
+    perturb = 0.05 * torch.randn(d + d * d, generator=gen, dtype=torch.float64) / d**0.5
+    for use_resampling, expect in ((False, 2), (True, 3)):
+        outs = {}
+        for device in (DEVICE, "cpu"):
+            objective = dis_objective(use_resampling, device=device, dtype=torch.float64,
+                                      base_sampler=sampler, resampler=FixedChoice(idx))
+            vp = (objective.approx.init_param() + perturb.to(device)).detach()
+            state = objective.init_obj_state(vp)
+            outs[device], _, launches = timed_run(
+                lambda: objective.value_and_grad_with_state(vp, None, state))
+            if device == DEVICE:
+                card_launches = {k: v for k, v in launches.items() if v}
+        value_err = max_rel_err(outs[DEVICE][0], outs["cpu"][0])
+        grad_err = max_rel_err(outs[DEVICE][1], outs["cpu"][1])
+        eps_err = max_rel_err(outs[DEVICE][2]["eps"], outs["cpu"][2]["eps"])
+        name = "resampling" if use_resampling else "no_resampling"
+        log(f"[dis_f64] {name}: value maxnorm_rel_err={value_err:.3e} "
+            f"grad maxnorm_rel_err={grad_err:.3e} eps_rel_err={eps_err:.3e} "
+            f"eps={float(outs['cpu'][2]['eps']):.6g} launches={card_launches}")
+        if not (value_err <= DIS_RTOL and grad_err <= DIS_RTOL and eps_err <= DIS_RTOL):
+            raise AssertionError(f"[dis_f64] {name}: card against CPU off by "
+                                 f"{value_err}, {grad_err}, {eps_err}")
+        if card_launches != {"vmem_solve_triangular": expect}:
+            raise AssertionError(f"[dis_f64] {name}: launches {card_launches}, "
+                                 f"expected {expect} of kernel 3")
+
+
+def phase_resume():
+    """FASO over the STL ExclusiveKL on FullRankGaussian(1000), f32, with a
+    250-row (1.0 GB) ring: 400 steps, the resume state written with
+    checkpoint.save_pytree and read back, resumed to 1,000 steps, against
+    an uninterrupted 1,000-step run from the same seed; then a 100,000-step
+    call under a 0.5 s budget, which must stop with a usable resume state."""
+    import viabel_torch as vt
+    from viabel_torch.checkpoint import load_pytree, save_pytree
+    d = FLAGSHIP_DIM
+
+    def run(n_iters, generator, **kw):
+        objective = vt.ExclusiveKL(vt.FullRankGaussian(d, device=DEVICE,
+                                                       dtype=torch.float32),
+                                   flagship_model(), 10, use_path_deriv=True)
+        faso = vt.FASO(vt.RMSProp(FLAGSHIP_LR, diagnostics=False), W_min=100,
+                       max_history=250)
+        return timed_run(lambda: faso.optimize(n_iters, objective,
+                                               objective.approx.init_param(),
+                                               generator=generator, **kw))
+
+    def check_launches(tag, launches, steps):
+        if launches["stl_transpose_solve"] != steps or launches["vmem_solve_triangular"]:
+            raise AssertionError(f"[resume] {tag}: launches {launches} in {steps} steps")
+        if launches["ring_group_stats"] <= 0:
+            raise AssertionError(f"[resume] {tag}: no R-hat check ran ring_group_stats")
+
+    part, wall, launches = run(RESUME_AT, torch.Generator(DEVICE).manual_seed(43))
+    report_run("[resume] [part]", part, wall, launches)
+    check_launches("part", launches, RESUME_AT)
+    rs = part["resume_state"]
+    log(f"[resume] [part] pending_checks={[ck['k'] for ck in rs['pending_checks']]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "faso_resume.npz")
+        start = time.perf_counter()
+        save_pytree(path, rs)
+        save_s = time.perf_counter() - start
+        nbytes = os.path.getsize(path)
+        start = time.perf_counter()
+        restored = load_pytree(path, like=rs)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - start
+    log(f"[resume] checkpoint save_seconds={save_s:.3f} load_seconds={load_s:.3f} "
+        f"file_bytes={nbytes}")
+    del part, rs
+    torch.cuda.empty_cache()
+    resumed, wall, launches = run(RESUME_ITERS, torch.Generator(DEVICE),
+                                  resume_state=restored)
+    report_run("[resume] [resumed]", resumed, wall, launches)
+    check_launches("resumed", launches, RESUME_ITERS - RESUME_AT)
+    del restored
+    resumed_param = resumed["opt_param"]
+    resumed_keys = [resumed[k] for k in ("k_conv", "k_Rhat", "k_stopped")]
+    del resumed
+    torch.cuda.empty_cache()
+    full, wall, launches = run(RESUME_ITERS, torch.Generator(DEVICE).manual_seed(43))
+    report_run("[resume] [uninterrupted]", full, wall, launches)
+    check_launches("uninterrupted", launches, RESUME_ITERS)
+    full_keys = [full[k] for k in ("k_conv", "k_Rhat", "k_stopped")]
+    rel = max_rel_err(resumed_param, full["opt_param"].cpu())
+    log(f"[resume] resumed k_conv/k_Rhat/k_stopped={resumed_keys} "
+        f"uninterrupted={full_keys} opt_param maxnorm_rel_err={rel:.3e}")
+    if resumed_keys != full_keys or not rel <= 1e-6:
+        raise AssertionError(f"[resume] the resumed run differs: {resumed_keys} against "
+                             f"{full_keys}, opt_param rel err {rel}")
+    del full
+    torch.cuda.empty_cache()
+    budget, wall, launches = run(100_000, torch.Generator(DEVICE).manual_seed(44),
+                                 max_time=0.5)
+    rs = budget["resume_state"]
+    log(f"[resume] [max_time=0.5] timed_out={budget['timed_out']} k={rs['k']} "
+        f"wall_s={wall:.3f} launches={launches}")
+    if not budget["timed_out"] or not 0 < rs["k"] < 100_000:
+        raise AssertionError("[resume] the 0.5 s budget did not stop the run")
+    if not torch.isfinite(rs["var_param"]).all():
+        raise AssertionError("[resume] non-finite parameter in the timed-out state")
+    more, wall, launches = run(rs["k"] + 100, torch.Generator(DEVICE), resume_state=rs)
+    log(f"[resume] [max_time=0.5] resumed for {more['value_history'].shape[0]} steps "
+        f"to k={more['resume_state']['k']}")
+    if more["resume_state"]["k"] != rs["k"] + 100 or not torch.isfinite(more["opt_param"]).all():
+        raise AssertionError("[resume] the timed-out state did not resume")
+    del budget, more, rs
+    torch.cuda.empty_cache()
+
+
+def phase_flows():
+    """The neural families at d = 1000, which carry no kernel: an NVPFlow of
+    two couplings with 256-wide MLPs under ExclusiveKL (sample, then the
+    flow's log density), and a square NeuralNet through ExclusiveKL's
+    sample_and_log_density branch (a Jacobian a draw by torch.func, then
+    slogdet)."""
+    import viabel_torch as vt
+    d, model = FLAGSHIP_DIM, flagship_model()
+    on_card = dict(device=DEVICE, dtype=torch.float32)
+    gen = torch.Generator(DEVICE).manual_seed(45)
+    mask = torch.zeros((2, d), **on_card)
+    mask[0, : d // 2] = 1.0
+    mask[1] = 1.0 - mask[0]
+    layers = [(d, 256), (256, d)]
+    flow = vt.NVPFlow(layers, layers, mask, vt.MFGaussian(d, **on_card),
+                      torch.zeros(2 * d, **on_card), d)
+    init = 0.01 * torch.randn(flow.var_param_dim, generator=gen, **on_card)
+    objective = vt.ExclusiveKL(flow, model, 10)
+    res, wall, launches = timed_run(lambda: vt.RMSProp(FLAGSHIP_LR).optimize(
+        FLOW_ITERS, objective, init, generator=gen))
+    report_run(f"[flows] [nvp_flow] var_param_dim={flow.var_param_dim}", res, wall, launches)
+    if any(launches.values()):
+        raise AssertionError(f"[flows] [nvp_flow] kernel launches {launches}")
+    net = vt.NeuralNet([(d, d)], last=lambda x: x, **on_card)
+    init = torch.cat([(torch.eye(d, **on_card)
+                       + 0.01 * torch.randn(d, d, generator=gen, **on_card)).reshape(-1),
+                      torch.zeros(d, **on_card)])
+    objective = vt.ExclusiveKL(net, model, 10)
+    res, wall, launches = timed_run(lambda: vt.RMSProp(FLAGSHIP_LR).optimize(
+        NET_ITERS, objective, init, generator=gen))
+    report_run("[flows] [neural_net_square]", res, wall, launches, k=20)
+    if any(launches.values()):
+        raise AssertionError(f"[flows] [neural_net_square] kernel launches {launches}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -761,6 +1000,10 @@ def main():
     phase_cubo()
     phase_iwelbo()
     phase_families()
+    phase_dis_f64()
+    phase_dis()
+    phase_resume()
+    phase_flows()
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": source,

@@ -512,3 +512,67 @@ def test_student_t_densities_on_the_card_match_cpu(cuda):
         got = on_card()
         assert ops.launch_counts()["vmem_solve_triangular"] == before + 1
         _assert_rel_close(got, on_cpu())
+
+
+class FixedChoice:
+    """A resampling hook returning the same indices on every device."""
+
+    def __init__(self, idx):
+        self.idx = idx
+
+    def choice(self, generator, p, n):
+        return self.idx[:n].to(p.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_resampling,launches", [(False, 2), (True, 3)])
+def test_dis_step_on_the_card_matches_cpu(cuda, use_resampling, launches):
+    """One DISInclusiveKL step over FullRankGaussian(300), f64, card
+    against CPU on the same draws and resampling indices: value, gradient
+    and state to 1e-9. Kernel 3 launches twice without resampling (log q
+    forward and its adjoint) and three times with it (the refresh's log q,
+    then the resampled loss forward and adjoint)."""
+    ((card, model_c), (cpu, model)), vp = _card_and_cpu("full", 300, cuda, seed=5)
+    idx = torch.randint(0, 40, (20,), generator=torch.Generator().manual_seed(6))
+    outs = []
+    for approx, m, p in ((card, model_c, vp.to(cuda)), (cpu, model, vp)):
+        obj = vt.DISInclusiveKL(approx, m, 40, ess_target=20,
+                                temper_prior=vt.MFGaussian(300, device=p.device,
+                                                           dtype=torch.float64),
+                                temper_prior_params=torch.zeros(600, dtype=torch.float64),
+                                use_resampling=use_resampling, resampler=FixedChoice(idx))
+        before = ops.launch_counts()["vmem_solve_triangular"]
+        value, grad, state = obj.value_and_grad_with_state(p, None, obj.init_obj_state(p))
+        outs.append((value, grad, state, ops.launch_counts()["vmem_solve_triangular"]
+                     - before))
+    (val_c, grad_c, state_c, moved), (val, grad, state, _) = outs
+    assert moved == launches
+    _assert_rel_close(val_c, val)
+    _assert_rel_close(grad_c, grad)
+    assert state_c["step"].device.type == "cpu" and int(state_c["step"]) == 1
+    for name in ("eps", "w_norm", "w_sum") if use_resampling else ("eps",):
+        _assert_rel_close(state_c[name], state[name])
+    assert bool(state_c["ok"]) and state_c["ok"].device == grad_c.device
+
+
+@pytest.mark.cuda
+def test_load_pytree_places_leaves_on_the_template_device(cuda, tmp_path):
+    """Leaves come back on each template leaf's device and in its dtype;
+    without a template, on the device asked for."""
+    from viabel_torch.checkpoint import load_pytree, save_pytree
+    tree = {"ring": torch.randn(4, 5, device=cuda), "t": 3,
+            "gen": torch.Generator(cuda).manual_seed(1).get_state(),
+            "host": torch.arange(3, dtype=torch.float64)}
+    path = str(tmp_path / "state.npz")
+    save_pytree(path, tree)
+    like = {"ring": torch.zeros(4, 5, device=cuda, dtype=torch.float64), "t": 0,
+            "gen": tree["gen"], "host": torch.zeros(3)}
+    restored = load_pytree(path, like=like)
+    assert restored["ring"].device.type == "cuda"
+    assert restored["ring"].dtype == torch.float64
+    torch.testing.assert_close(restored["ring"], tree["ring"].double())
+    assert restored["host"].device.type == "cpu" and restored["host"].dtype == torch.float32
+    assert restored["gen"].device.type == "cpu" and torch.equal(restored["gen"], tree["gen"])
+    assert restored["t"] == 3
+    flat = load_pytree(path, device=cuda)
+    assert all(x.device.type == "cuda" for x in flat)

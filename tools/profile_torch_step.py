@@ -4,7 +4,9 @@
 
 At the d=1000 full-rank flagship (``logistic_regression(n_data=512)``,
 ``ExclusiveKL`` with S=10, RMSProp at lr 0.001, float32), for the STL and
-the entropy estimator in turn, it prints:
+the entropy estimator in turn, and then for ``DISInclusiveKL`` (S=100,
+ESS target 50, an MFGaussian temper prior at zero parameters) with and
+without resampling, it prints:
 
 - ``[step]``: host milliseconds per optimizer step (ring write included),
   over 500 steps after 100 warm-up steps;
@@ -16,9 +18,11 @@ the entropy estimator in turn, it prints:
   unprofiled step time of ``[step]`` (the profiler itself slows the
   host); then the profiler's table sorted by device time.
 
-Then it times the FASO checks on a full (600, D) ring (R-hat over five
-windows, window mean, MCSE check) with CUDA events, and prints the peak
-device memory. Nothing is written to disk. It needs one CUDA card.
+For DIS it also times the 50-step bisection on ``eps`` alone
+(``[dis_bisection]``, CUDA events). Then it times the FASO checks on a
+full (600, D) ring (R-hat over five windows, window mean, MCSE check)
+with CUDA events, and prints the peak device memory. Nothing is written
+to disk. It needs one CUDA card.
 """
 
 import os
@@ -41,6 +45,7 @@ from viabel_torch.mc_diagnostics import (ring_window_mean,  # noqa: E402
 DIM = 1000
 N_DATA = 512
 S = 10
+DIS_S, DIS_ESS = 100, 50
 LR = 0.001
 RING_ROWS = 600
 GROUP = 50
@@ -63,17 +68,17 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def profile_estimator(model, approx, generator, stl):
-    objective = vt.ExclusiveKL(approx, model, S, use_path_deriv=stl)
+def profile_estimator(tag, objective, approx, generator, draws):
     sgo = vt.RMSProp(LR)
     state = {"param": approx.init_param()}
     state["opt"] = sgo.init_state(state["param"])
+    state["obj"] = objective.init_obj_state(state["param"])
     ring = torch.zeros((RING_ROWS, state["param"].shape[0]), device="cuda")
 
     def step(i):
-        param, opt, *_ = sgo.step(objective, state["param"], state["opt"],
-                                  generator, LR)
-        state["param"], state["opt"] = param, opt
+        param, opt, obj, *_ = sgo.step(objective, state["param"], state["opt"],
+                                       state["obj"], generator, LR)
+        state["param"], state["opt"], state["obj"] = param, opt, obj
         ring[i % RING_ROWS] = param
 
     for i in range(100):
@@ -84,11 +89,11 @@ def profile_estimator(model, approx, generator, stl):
         step(i)
     torch.cuda.synchronize()
     per_step = (time.perf_counter() - start) / 500
-    print(f"[step] stl={stl} host_ms_per_step={per_step * 1e3:.4f} "
+    print(f"[step] {tag} host_ms_per_step={per_step * 1e3:.4f} "
           f"steps_per_s={1 / per_step:.2f}", flush=True)
 
     ms = cuda_ms(lambda: objective.value_and_grad(state["param"], generator), 50)
-    print(f"[elbo_grad] stl={stl} ms={ms:.4f} ms_per_1k_draws={ms / S * 1000:.4f}",
+    print(f"[elbo_grad] {tag} ms={ms:.4f} ms_per_1k_draws={ms / draws * 1000:.4f}",
           flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -101,11 +106,22 @@ def profile_estimator(model, approx, generator, stl):
     # operator rows repeat their kernels' time: sum the device's own rows
     device_ms = sum(k.self_device_time_total for k in averages
                     if k.device_type == DeviceType.CUDA) / 1e3 / 20
-    print(f"[profile] stl={stl} steps=20 wall_ms={wall_ms:.3f} "
+    print(f"[profile] {tag} steps=20 wall_ms={wall_ms:.3f} "
           f"device_ms_per_step={device_ms:.4f} "
           f"busy_share={device_ms / (per_step * 1e3):.3f}", flush=True)
     print(averages.table(sort_by="self_device_time_total", row_limit=14,
                          max_name_column_width=60), flush=True)
+
+
+def profile_bisection(dis, approx, model, generator):
+    """The 50-step bisection on eps alone, on one refresh's draws."""
+    param = approx.init_param()
+    with torch.no_grad():
+        samples = approx.sample(param, DIS_S, generator)
+        log_p, log_q = model(samples), approx.log_density(param, samples)
+    eps = torch.tensor(1.0, device="cuda")
+    ms = cuda_ms(lambda: dis._eps_and_weights(eps, samples, log_p, log_q), 50)
+    print(f"[dis_bisection] S={DIS_S} ms={ms:.4f}", flush=True)
 
 
 def profile_checks(generator):
@@ -140,7 +156,15 @@ def main():
     approx = vt.FullRankGaussian(DIM, device="cuda", dtype=torch.float32)
     generator = torch.Generator("cuda").manual_seed(0)
     for stl in (True, False):
-        profile_estimator(model, approx, generator, stl)
+        profile_estimator(f"stl={stl}", vt.ExclusiveKL(approx, model, S, use_path_deriv=stl),
+                          approx, generator, S)
+    prior = vt.MFGaussian(DIM, device="cuda", dtype=torch.float32)
+    for resampling in (True, False):
+        dis = vt.DISInclusiveKL(approx, model, DIS_S, ess_target=DIS_ESS, temper_prior=prior,
+                                temper_prior_params=torch.zeros(2 * DIM, device="cuda"),
+                                use_resampling=resampling)
+        profile_estimator(f"dis_resampling={resampling}", dis, approx, generator, DIS_S)
+    profile_bisection(dis, approx, model, generator)
     profile_checks(generator)
     print(f"[mem] max_memory_allocated_bytes={torch.cuda.max_memory_allocated()}")
     return 0

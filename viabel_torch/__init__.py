@@ -5,42 +5,40 @@ A port of :mod:`viabel_tpu` (the JAX package, which stays the reference)
 that keeps its module names, public function names and flat parameter
 layouts. It covers ``bbvi``'s adaptive path (FASO and RAABBVI), the
 parametric families (MFGaussian, MFStudentT, FullRankGaussian,
-MultivariateT, LRGaussian), the ExclusiveKL (with its control variates),
-IWELBO and AlphaDivergence objectives, every step rule, and the
+MultivariateT, LRGaussian) and the neural ones (NeuralNet, NVPFlow), the
+ExclusiveKL (with its control variates), IWELBO, AlphaDivergence and
+DISInclusiveKL objectives, every step rule, FASO and RAABBVI resume and
+wall-clock budgets with the ``.npz`` checkpoint, and the
 ``vi_diagnostics`` front door (PSIS, the error bounds, the KSD test).
 Kernels live in :mod:`viabel_torch.ops`. Every entry point runs on the
 CUDA card unless the caller passes ``device="cpu"``.
 """
 
-from . import (convert, diagnostics, distributions, families, hmc, mc_diagnostics,
-               objectives, ops, optimizers, psis)
+from . import (checkpoint, convert, diagnostics, distributions, families, hmc,
+               mc_diagnostics, objectives, ops, optimizers, psis)
 from .convenience import bbvi, vi_diagnostics
 from .distributions import multivariate_normal_logpdf, multivariate_t_logpdf
 from .faso import FASO, RAABBVI
 from .families import (ApproximationFamily, FullRankGaussian, LRGaussian, MFGaussian,
-                       MFStudentT, MultivariateT)
+                       MFStudentT, MultivariateT, NeuralNet, NVPFlow)
 from .models import Model, zoo
-from .objectives import (AlphaDivergence, ExclusiveKL, IWELBO,
+from .objectives import (AlphaDivergence, DISInclusiveKL, ExclusiveKL, IWELBO,
                          StochasticVariationalObjective, VariationalObjective)
 from .optimizers import (Adagrad, Adam, AveragedAdam, AveragedRMSProp, Optimizer,
                          RMSProp, StochasticGradientOptimizer, WindowedAdagrad)
-from .utils import deferred_names
-
-__getattr__ = deferred_names(__name__, {**families.NOT_PORTED,
-                                        **objectives.NOT_PORTED})
 
 __version__ = "0.1.0"
 
 __all__ = [
     "ApproximationFamily", "MFGaussian", "MFStudentT", "FullRankGaussian",
-    "MultivariateT", "LRGaussian",
+    "MultivariateT", "LRGaussian", "NeuralNet", "NVPFlow",
     "Model", "zoo",
     "VariationalObjective", "StochasticVariationalObjective", "ExclusiveKL",
-    "IWELBO", "AlphaDivergence",
+    "IWELBO", "AlphaDivergence", "DISInclusiveKL",
     "Optimizer", "StochasticGradientOptimizer", "RMSProp", "AveragedRMSProp",
     "Adam", "AveragedAdam", "Adagrad", "WindowedAdagrad",
     "FASO", "RAABBVI", "bbvi", "vi_diagnostics",
     "multivariate_normal_logpdf", "multivariate_t_logpdf",
-    "convert", "diagnostics", "distributions", "hmc", "mc_diagnostics", "ops",
-    "psis",
+    "checkpoint", "convert", "diagnostics", "distributions", "hmc",
+    "mc_diagnostics", "ops", "psis",
 ]

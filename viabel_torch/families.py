@@ -11,7 +11,10 @@ between the packages (:mod:`viabel_torch.convert`):
   strictly-upper triangle of ``theta`` is unused (zero gradient, never
   read);
 - ``LRGaussian``: ``[mu (d), log_sigma (d), B (d*k, row-major)]`` with
-  ``Sigma = B B^T + diag(exp(2 log_sigma))``.
+  ``Sigma = B B^T + diag(exp(2 log_sigma))``;
+- ``NeuralNet``: per layer ``W (m*n, row-major)`` then ``b (n)``;
+- ``NVPFlow``: per coupling the ``t`` network's then the ``s`` network's
+  ``NeuralNet`` parameters.
 
 Families carry the ``device`` and ``dtype`` their parameters live on; the
 device defaults to ``"cuda"`` and raises where no card is present.
@@ -20,17 +23,14 @@ device defaults to ``"cuda"`` and raises where no card is present.
 import math
 
 import torch
+from torch import func
 
 from .ops.trsm import (KERNEL_MAX_DIM, cholesky_factor, stl_transpose_solve,
                        vmem_solve_triangular)
-from .utils import check_device, chisquare, deferred_names, ensure_2d
+from .utils import check_device, chisquare, ensure_2d
 
 __all__ = ["ApproximationFamily", "MFGaussian", "MFStudentT", "FullRankGaussian",
-           "MultivariateT", "LRGaussian"]
-
-#: families of the JAX package not ported yet, by ROADMAP.md item
-NOT_PORTED = {"NeuralNet": "9b", "NVPFlow": "9b"}
-__getattr__ = deferred_names(__name__, NOT_PORTED)
+           "MultivariateT", "LRGaussian", "NeuralNet", "NVPFlow"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -701,3 +701,174 @@ class LRGaussian(ApproximationFamily):
 
     def supports_pth_moment(self, p):
         return p in (2, 4)
+
+
+def _mc_mean_and_cov(family, var_param, generator):
+    """Mean and covariance of ``family.mc_samples`` draws (the reference's
+    internal Monte Carlo, approximations.py:441-443); ``generator``
+    defaults to seed 0 on the parameter's device."""
+    if generator is None:
+        generator = torch.Generator(var_param.device).manual_seed(0)
+    samples = family.sample(var_param, family.mc_samples, generator)
+    mean = torch.mean(samples, dim=0)
+    centered = samples - mean
+    return mean, centered.T @ centered / (samples.shape[0] - 1)
+
+
+class NeuralNet(ApproximationFamily):
+    """MLP pushforward of a standard normal (reference
+    approximations.py:385-449): ``x = act(... act(z @ W_1 + b_1) ...)``,
+    ``last`` on the final layer and ``nonlinearity`` on the others, both
+    torch callables. ``log_density`` is not available (the map is in
+    general not invertible); ``sample_and_log_density`` gives the exact
+    density at the family's own samples when every layer is square, and
+    ``mean_and_cov`` is estimated from ``mc_samples`` draws.
+    """
+
+    def __init__(self, layers_shapes, nonlinearity=torch.tanh, last=torch.tanh,
+                 mc_samples=10000, base_sampler=None, device="cuda", dtype=None):
+        self._layers_shapes = [tuple(int(v) for v in s) for s in layers_shapes]
+        self._nonlinearity = nonlinearity
+        self._last = last
+        self.mc_samples = int(mc_samples)
+        self.input_dim = self._layers_shapes[0][0]
+        n_params = sum(m * n + n for m, n in self._layers_shapes)
+        super().__init__(self._layers_shapes[-1][-1], n_params, False, False,
+                         device, dtype, base_sampler)
+
+    def unpack(self, var_param):
+        """The per-layer ``(W (m, n), b (n))`` pairs."""
+        params, i = [], 0
+        for m, n in self._layers_shapes:
+            W = var_param[i: i + m * n].view(m, n)
+            i += m * n
+            params.append((W, var_param[i: i + n]))
+            i += n
+        return params
+
+    def forward(self, var_param, x):
+        """Push ``x`` through the network. Like the JAX package, the
+        reference's per-layer "log-det-Jacobian" (exact only for 1-D
+        layers, and read by nothing) is not returned."""
+        params = self.unpack(var_param)
+        for idx, (W, b) in enumerate(params):
+            act = self._last if idx + 1 == len(params) else self._nonlinearity
+            x = act(x @ W + b)
+        return x
+
+    def sample(self, var_param, n_samples, generator):
+        z0 = self._base_normal(generator, n_samples, self.input_dim,
+                               var_param.dtype, var_param.device)
+        return self.forward(var_param, z0)
+
+    def log_density(self, var_param, x):
+        raise NotImplementedError()
+
+    def sample_and_log_density(self, var_param, n_samples, generator):
+        """Samples and their exact pushforward log density, ``log q(x) =
+        log N(z) - log |det J_f(z)|`` at the latent ``z`` each sample came
+        from: one Jacobian a draw by ``torch.func.jacfwd`` under ``vmap``,
+        then ``slogdet``. Needs every layer square (and the map injective
+        on the support)."""
+        d = self.input_dim
+        if any(m != n for m, n in self._layers_shapes):
+            raise ValueError("exact pushforward density needs square layers")
+        z0 = self._base_normal(generator, n_samples, d, var_param.dtype,
+                               var_param.device)
+        x = self.forward(var_param, z0)
+
+        def single(z):
+            return self.forward(var_param, z[None, :])[0]
+
+        jac = func.vmap(func.jacfwd(single))(z0)          # (n, d, d)
+        _, logdet = torch.linalg.slogdet(jac)
+        log_p_z = torch.sum(-0.5 * z0**2 - 0.5 * _LOG_2PI, dim=-1)
+        return x, log_p_z - logdet
+
+    def mean_and_cov(self, var_param, generator=None):
+        return _mc_mean_and_cov(self, var_param, generator)
+
+    def supports_pth_moment(self, p):
+        return False
+
+
+class NVPFlow(ApproximationFamily):
+    """RealNVP masked affine coupling flow (reference
+    approximations.py:452-550). The ``t`` and ``s`` subnetworks are
+    :class:`NeuralNet` MLPs (identity and tanh last activations); the
+    exact log density uses the coupling log-determinant ``-sum(s)``. The
+    base distribution is any family of the port, ``prior`` at
+    ``prior_param``; the flow lives on the prior's device and in its
+    dtype. ``mask`` holds one 0/1 row a coupling; it is cast to the
+    parameter's dtype where it is used."""
+
+    def __init__(self, layers_t, layers_s, mask, prior, prior_param, dim,
+                 activation=torch.tanh, mc_samples=10000):
+        if len(layers_t) != len(layers_s):
+            raise ValueError("layers_t and layers_s need one entry per layer each")
+        device, dtype = prior.device, prior.dtype
+        self.prior = prior
+        self.prior_param = torch.as_tensor(prior_param, dtype=dtype, device=device)
+        self.mask = torch.as_tensor(mask, device=device)
+        self.mc_samples = int(mc_samples)
+        net = dict(device=device, dtype=dtype)
+        self.t_net = NeuralNet(layers_t, nonlinearity=activation, last=lambda x: x, **net)
+        self.s_net = NeuralNet(layers_s, nonlinearity=activation, last=torch.tanh, **net)
+        self._n_coupling = int(self.mask.shape[0])
+        per_layer = self.t_net.var_param_dim + self.s_net.var_param_dim
+        super().__init__(dim, self._n_coupling * per_layer, False, False, device, dtype)
+
+    def unpack(self, var_param):
+        """The per-coupling ``(t_params, s_params)`` flat vectors."""
+        nt, ns = self.t_net.var_param_dim, self.s_net.var_param_dim
+        out, i = [], 0
+        for _ in range(self._n_coupling):
+            out.append((var_param[i: i + nt], var_param[i + nt: i + nt + ns]))
+            i += nt + ns
+        return out
+
+    def _masks(self, var_param):
+        return self.mask.to(dtype=var_param.dtype)
+
+    def g(self, var_param, z):
+        """Inverse flow, latent to data (reference 494-511)."""
+        x, masks = z, self._masks(var_param)
+        for i, (tp, sp) in enumerate(self.unpack(var_param)):
+            m = masks[i]
+            x_masked = x * m
+            s = self.s_net.forward(sp, x_masked) * (1.0 - m)
+            t = self.t_net.forward(tp, x_masked) * (1.0 - m)
+            x = x_masked + (1.0 - m) * (x * torch.exp(s) + t)
+        return x
+
+    def f(self, var_param, x):
+        """Forward flow, data to latent, with ``log |det J|`` (reference
+        513-531)."""
+        z, masks = x, self._masks(var_param)
+        log_det_J = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        params = self.unpack(var_param)
+        for i in reversed(range(self._n_coupling)):
+            tp, sp = params[i]
+            m = masks[i]
+            z_masked = m * z
+            s = self.s_net.forward(sp, z_masked) * (1.0 - m)
+            t = self.t_net.forward(tp, z_masked) * (1.0 - m)
+            z = (1.0 - m) * (z - t) * torch.exp(-s) + z_masked
+            log_det_J = log_det_J - torch.sum(s, dim=1)
+        return z, log_det_J
+
+    def log_density(self, var_param, x):
+        squeeze = x.dim() == 1
+        z, logdet = self.f(var_param, ensure_2d(x))
+        out = self.prior.log_density(self.prior_param, z) + logdet
+        return out[0] if squeeze else out
+
+    def sample(self, var_param, n_samples, generator):
+        z0 = self.prior.sample(self.prior_param, int(n_samples), generator)
+        return self.g(var_param, z0)
+
+    def mean_and_cov(self, var_param, generator=None):
+        return _mc_mean_and_cov(self, var_param, generator)
+
+    def supports_pth_moment(self, p):
+        return False

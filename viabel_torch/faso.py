@@ -14,9 +14,13 @@ without blocking; the verdict is read ``check_pipeline`` segments later,
 when the copy has long finished, and convergence is back-dated to the
 check's own iteration.
 
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``mesh`` (Queue 1 item 13), ``resume_state`` and ``max_time`` (Queue 1
-item 6), RAABBVI's ``init_rmsprop`` (Queue 1 item 7).
+Every run returns a ``resume_state`` that continues it from its last
+segment boundary (save it with :mod:`viabel_torch.checkpoint`), and
+``max_time`` stops a run at a segment boundary with ``timed_out`` set. In
+place of the JAX package's PRNG key the state carries the generator's
+``get_state()``; a resumed run sets it into the caller's generator, which
+must be on the same device type. ``mesh`` is not ported yet (ROADMAP.md,
+Queue 1 item 13).
 """
 
 import math
@@ -31,7 +35,8 @@ from .hmc import hmc_sample
 from .mc_diagnostics import (ess_and_mcse_windowed, ring_window_mean,
                              split_rhat_ring_windows)
 from .optimizers import (AveragedAdam, AveragedRMSProp, Optimizer, RMSProp,
-                         StochasticGradientOptimizer, default_generator)
+                         StochasticGradientOptimizer, _obj_check_state, _obj_init_state,
+                         default_generator)
 from .utils import Timer, not_ported
 
 __all__ = ["FASO", "RAABBVI"]
@@ -52,6 +57,45 @@ def _clamp_stat(value):
     overflowing gate statistic reads as a plateau, as in the JAX package)."""
     v = float(value)
     return min(v, 1e300) if math.isfinite(v) else 1e300
+
+
+def _pad_tail(values, size):
+    """The last ``size`` entries, NaN-padded at the front to a fixed shape
+    (the JAX package's checkpoint layout)."""
+    out = np.full(max(size, 1), np.nan)
+    tail = list(values)[-size:]
+    if tail:
+        out[-len(tail):] = tail
+    return out
+
+
+def _pad_events(events, cap):
+    """``(iteration, new_S)`` rows padded to a fixed ``cap`` with -1 rows."""
+    out = np.full((max(cap, 1), 2), -1, dtype=np.int64)
+    if events:
+        rows = np.asarray(events, dtype=np.int64).reshape(-1, 2)[:cap]
+        out[:len(rows)] = rows
+    return out
+
+
+def _clone_state(state):
+    """A copy of a state dict's tensors (a step rule may write its state
+    in place, and a resume state must stay reusable)."""
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in state.items()}
+
+
+def _set_generator_state(generator, state):
+    """Continue ``generator`` from a saved ``get_state()``. A CPU and a
+    CUDA generator keep states of different sizes, and one cannot seed
+    the other."""
+    state = torch.as_tensor(state, dtype=torch.uint8, device="cpu")
+    if state.numel() != generator.get_state().numel():
+        raise ValueError(
+            "the resume_state's generator_state was taken from a generator on "
+            f"another device type than this {generator.device.type!r} one; pass "
+            "a generator on the device type of the run that saved it")
+    generator.set_state(state)
 
 
 def _largest_divisor_leq(n, cap):
@@ -167,6 +211,12 @@ def _read_host(handle):
     return host.numpy()
 
 
+def _host_handle(array):
+    """A :func:`_read_host` handle of a verdict already on the host (one
+    carried in a resume state)."""
+    return torch.from_numpy(np.array(array)), None
+
+
 class FASO(Optimizer):
     """Fixed-learning-rate stochastic optimization with convergence
     detection (reference optimization.py:479-633).
@@ -178,8 +228,10 @@ class FASO(Optimizer):
     ``n_iters``), ``rhat_threshold``, ``rhat_quantile``, ``rhat_backoff``,
     ``rhat_group``, ``check_pipeline`` (segments between an R-hat check's
     dispatch and its read-back; diagnostics mode reads at once),
-    ``mc_escalation``, ``mc_max_samples``, ``mc_patience``,
-    ``mc_plateau_rtol``. ``mesh`` and ``max_time`` are not ported yet.
+    ``max_time`` (a wall-clock budget in seconds for each ``optimize``
+    call, checked at segment boundaries), ``mc_escalation``,
+    ``mc_max_samples``, ``mc_patience``, ``mc_plateau_rtol``. ``mesh`` is
+    not ported yet.
 
     Beside the JAX package's results, ``results["rhat_verdicts"]`` lists
     each R-hat verdict read as ``(k, best_window, statistic, passed)``.
@@ -195,8 +247,6 @@ class FASO(Optimizer):
             raise ValueError("sgo must be a subclass of StochasticGradientOptimizer")
         if mesh is not None:
             raise not_ported("FASO(mesh=...)", 13)
-        if max_time is not None:
-            raise not_ported("FASO(max_time=...)", 6)
         self._sgo = sgo
         self._mcse_threshold = float(mcse_threshold)
         self._W_min = int(W_min)
@@ -208,6 +258,7 @@ class FASO(Optimizer):
         self._rhat_backoff = None if rhat_backoff is None else float(rhat_backoff)
         self._rhat_group = int(rhat_group) if rhat_group else None
         self._check_pipeline = int(check_pipeline)
+        self._max_time = None if max_time is None else float(max_time)
         self._mc_escalation = (None if mc_escalation is None
                                else float(mc_escalation))
         self._mc_max_samples = (None if mc_max_samples is None
@@ -222,6 +273,8 @@ class FASO(Optimizer):
             raise ValueError('"mc_patience" must be at least two')
         if self._mc_plateau_rtol <= 0.0:
             raise ValueError('"mc_plateau_rtol" must be greater than zero')
+        if self._max_time is not None and self._max_time < 0:
+            raise ValueError('"max_time" must be non-negative')
         if self._check_pipeline < 0:
             raise ValueError('"check_pipeline" must be non-negative')
         if mcse_threshold <= 0:
@@ -237,8 +290,8 @@ class FASO(Optimizer):
                             self._rhat_group, self._rhat_quantile,
                             self._rhat_backoff, 1)
 
-    def _run_segment(self, objective, var_param, opt_state, generator, ring,
-                     t, lr, steps, diagnostics):
+    def _run_segment(self, objective, var_param, opt_state, obj_state, generator,
+                     ring, t, lr, steps, diagnostics):
         """``steps`` optimizer steps, each iterate written to ring slot
         ``t % R``. Returns the carry and the segment's outputs (values,
         and per-step gradients and directions on the host in diagnostics
@@ -246,8 +299,8 @@ class FASO(Optimizer):
         R = ring.shape[0]
         values, grads, dirs = [], [], []
         for _ in range(steps):
-            var_param, opt_state, value, direction, grad = self._sgo.step(
-                objective, var_param, opt_state, generator, lr)
+            var_param, opt_state, obj_state, value, direction, grad = self._sgo.step(
+                objective, var_param, opt_state, obj_state, generator, lr)
             ring[t % R] = var_param
             t += 1
             values.append(value)
@@ -258,7 +311,7 @@ class FASO(Optimizer):
         if diagnostics:
             outs += (torch.stack(grads).cpu().numpy(),
                      torch.stack(dirs).cpu().numpy())
-        return var_param, opt_state, t, outs
+        return var_param, opt_state, obj_state, t, outs
 
     def optimize(self, n_iters, objective, init_param, generator=None,
                  init_opt_state=None, resume_state=None,
@@ -266,16 +319,20 @@ class FASO(Optimizer):
                  mcse_threshold=None, max_time=None):
         """Run FASO.
 
+        ``resume_state``: the ``results["resume_state"]`` of an earlier
+        (possibly stopped) run; the run continues from that segment
+        boundary with the same convergence statistics, and the
+        ``generator_state`` it carries is set into ``generator`` (by
+        default a new generator on the parameter's device), which must be
+        on the same device type as the generator that saved it.
         ``progress_callback(k, avg_loss)`` is invoked at each segment
-        boundary. ``learning_rate`` / ``mcse_threshold`` override the
-        constructor values for this run only (RAABBVI threads its
-        per-round decayed values through them).
+        boundary. ``learning_rate`` / ``mcse_threshold`` / ``max_time``
+        override the constructor values for this run only (RAABBVI threads
+        its per-round decayed values and the rest of its budget through
+        them).
         """
-        if resume_state is not None:
-            raise not_ported("FASO resume_state", 6)
-        if max_time is not None:
-            raise not_ported("FASO max_time", 6)
         n_iters = int(n_iters)
+        max_time = self._max_time if max_time is None else float(max_time)
         mcse_threshold = (self._mcse_threshold if mcse_threshold is None
                           else float(mcse_threshold))
         diagnostics = self._sgo._diagnostics
@@ -284,30 +341,40 @@ class FASO(Optimizer):
                   else None)
 
         var_param = init_param.detach().clone()
-        if generator is None:
-            generator = default_generator(var_param.device)
         D = var_param.shape[0]
         _, _, G, R, rhat_allowed = _detection_geometry(
             D, self._W_min, self._k_check, self._ESS_min, self._rhat_group,
             self._rhat_quantile, self._rhat_backoff,
             int(self._max_history) if self._max_history else max(n_iters, 2))
-        ring = torch.zeros((R, D), dtype=var_param.dtype, device=var_param.device)
+        # a resumed run brings its own ring
+        ring = (torch.zeros((R, D), dtype=var_param.dtype, device=var_param.device)
+                if resume_state is None else None)
         opt_state = (self._sgo.init_state(var_param)
                      if init_opt_state is None else init_opt_state)
+        obj_state = _obj_init_state(objective, var_param)
         t = 0
         lr = float(self._sgo._learning_rate if learning_rate is None
                    else learning_rate)
 
         mc_escalation = self._mc_escalation
         mc_max = None
+        mc_event_cap = 1
         if mc_escalation is not None:
             S0 = getattr(objective, "num_mc_samples", None)
             if S0 is None:
                 raise ValueError(
                     "mc_escalation needs an objective exposing a settable "
                     "num_mc_samples (got {})".format(type(objective).__name__))
+            # an objective with estimator state escalates too: the rung
+            # boundary re-derives its state at the new sample count
+            mc_stateful = bool(obj_state)
             mc_max = (self._mc_max_samples if self._mc_max_samples is not None
                       else 40 * int(S0))
+            # every escalation multiplies S by >= mc_escalation until the
+            # ceiling, so the event log is bounded by the geometric ladder
+            mc_event_cap = 1 + max(0, int(math.ceil(
+                math.log(max(mc_max / max(int(S0), 1), 1.0))
+                / math.log(mc_escalation) + 1e-9)))
         mc_plateau = []       # failing R-hat stats since the last escalation
         mc_plateau_mcse = []  # failing ring-capped MCSE/ESS gate ratios
         mc_events = []        # (iteration, new_S) escalation records
@@ -325,6 +392,7 @@ class FASO(Optimizer):
         k_stopped = None
         W_check = None
         last_best_W = None  # best R-hat window at the most recent check
+        total_opt_time = 0.0
         eff = mcse = None
         # adaptive check cadence (rhat_backoff; interval in k_check units);
         # interval_adjusted_at limits doubling to once per verdict
@@ -332,14 +400,56 @@ class FASO(Optimizer):
         check_interval = 1
         next_check_at = 0
         interval_adjusted_at = -1
+        pending = deque()
+
+        if resume_state is not None:
+            rs = resume_state
+            var_param = torch.as_tensor(rs["var_param"]).to(var_param).clone()
+            opt_state = _clone_state(rs["opt_state"])
+            obj_state = _clone_state(rs.get("obj_state", obj_state))
+            # a copy: segments write the ring in place, and the caller's
+            # snapshot must stay valid
+            ring = torch.as_tensor(rs["ring"]).to(var_param).clone()
+            R = ring.shape[0]  # the checkpointed ring wins over local sizing
+            t = int(rs["t"])
+            k = int(rs["k"])
+            k_conv = None if int(rs["k_conv"]) < 0 else int(rs["k_conv"])
+            k_Rhat = None if int(rs["k_Rhat"]) < 0 else int(rs["k_Rhat"])
+            W_check = None if int(rs["W_check"]) < 0 else int(rs["W_check"])
+            total_opt_time = float(rs["total_opt_time"])
+            iterate_average = torch.as_tensor(rs["iterate_average"]).to(var_param)
+            check_interval = int(rs.get("check_interval", 1))
+            next_check_at = int(rs.get("next_check_at", 0))
+            interval_adjusted_at = int(rs.get("interval_adjusted_at", -1))
+            pending.extend({"k": int(ck["k"]), "windows": np.asarray(ck["windows"]),
+                            "r_hats": _host_handle(ck["r_hats"])}
+                           for ck in rs.get("pending_checks", []))
+            if mc_escalation is not None:
+                rs_S = int(rs.get("mc_samples", -1))
+                if rs_S > 0:
+                    objective.num_mc_samples = rs_S
+                mc_escalated_at = int(rs.get("mc_escalated_at", -1))
+                mc_plateau = [float(v) for v in np.asarray(
+                    rs.get("mc_plateau", ())).ravel() if np.isfinite(v)]
+                mc_plateau_mcse = [float(v) for v in np.asarray(
+                    rs.get("mc_plateau_mcse", ())).ravel() if np.isfinite(v)]
+                mc_events = [(int(a), int(b)) for a, b in np.asarray(
+                    rs.get("mc_events", np.zeros((0, 2)))).reshape(-1, 2)
+                    if a >= 0]
+        if generator is None:
+            generator = default_generator(var_param.device)
+        if resume_state is not None and "generator_state" in resume_state:
+            _set_generator_state(generator, resume_state["generator_state"])
 
         # fixed-lr segments are identical whatever a pending R-hat check
         # concludes, so verdicts are read `pipeline` segments after their
         # dispatch; diagnostics mode reads them at once so per-check
         # histories match the reference exactly
         pipeline = 0 if diagnostics else self._check_pipeline
+        # backoff cap: consecutive checks stay within one ring length
         max_interval = max(1, R // self._k_check)
-        pending = deque()
+        timed_out = False
+        resumed_opt_time = total_opt_time
         mcse_time_total = 0.0
         loop_start = _now()
 
@@ -394,11 +504,16 @@ class FASO(Optimizer):
             return w[0] - w[-1] < self._mc_plateau_rtol * abs(w[0])
 
         def escalate(stat):
-            nonlocal mc_escalated_at, check_interval
+            nonlocal mc_escalated_at, check_interval, obj_state
             nonlocal next_check_at, interval_adjusted_at, W_check
             new_S = min(int(math.ceil(objective.num_mc_samples
                                       * mc_escalation)), mc_max)
             objective.num_mc_samples = new_S
+            if mc_stateful:
+                # re-derive the threaded estimator state at the new count
+                resize = getattr(objective, "resize_obj_state", None)
+                obj_state = (resize(obj_state, var_param) if resize is not None
+                             else _obj_init_state(objective, var_param))
             mc_escalated_at = k
             mc_events.append((k, new_S))
             mc_plateau.clear()
@@ -416,11 +531,21 @@ class FASO(Optimizer):
                       float(stat), new_S, k))
 
         while k < n_iters:
-            # segments stay aligned to the k_check grid
+            # the wall-clock budget is enforced at segment boundaries, so a
+            # timed-out run stops exactly where a resume can continue it
+            if max_time is not None and _now() - loop_start >= max_time:
+                timed_out = True
+                print("WARNING: wall-clock budget ({:g} s) reached at "
+                      "iteration {}; returning partial results "
+                      "(resumable)".format(max_time, k))
+                break
+            # segments stay aligned to the k_check grid (a resumed run's
+            # first segment may be shorter to realign)
             steps = min(self._k_check - (k % self._k_check), n_iters - k)
-            var_param, opt_state, t, outs = self._run_segment(
-                objective, var_param, opt_state, generator, ring, t, lr,
-                steps, diagnostics)
+            var_param, opt_state, obj_state, t, outs = self._run_segment(
+                objective, var_param, opt_state, obj_state, generator, ring, t,
+                lr, steps, diagnostics)
+            _obj_check_state(objective, obj_state)
             k += steps
             history["value_history"].append(outs[0])
             if diagnostics:
@@ -488,13 +613,41 @@ class FASO(Optimizer):
                             self._ESS_min / max(ess_stat, 1e-300))))
                 # cost-aware recheck growth (reference 601-605);
                 # optimization time is wall-clock minus check time
-                total_opt_time = max(_now() - loop_start - mcse_time_total, 1e-9)
+                total_opt_time = resumed_opt_time + max(
+                    _now() - loop_start - mcse_time_total, 1e-9)
                 W_check = int(_recheck_scale(total_opt_time / k,
                                              mcse_timer.interval / W)
                               * W_check + 1)
                 if _plateaued(mc_plateau_mcse):
                     escalate(mc_plateau_mcse[-1])
 
+        total_opt_time = resumed_opt_time + (_now() - loop_start - mcse_time_total)
+
+        # snapshot the in-flight checks before draining them: a resumed run
+        # replays them on the same schedule, so resume matches an
+        # uninterrupted run (the drain below shapes only this run's
+        # results); the verdicts go out as host arrays
+        resume_pre_drain = {
+            "k_conv": -1 if k_conv is None else k_conv,
+            "k_Rhat": -1 if k_Rhat is None else k_Rhat,
+            "W_check": -1 if W_check is None else W_check,
+            "check_interval": check_interval,
+            "next_check_at": next_check_at,
+            "interval_adjusted_at": interval_adjusted_at,
+            "iterate_average": iterate_average,
+            "pending_checks": [
+                {"k": int(ck["k"]), "windows": np.asarray(ck["windows"]),
+                 "r_hats": _read_host(ck["r_hats"])} for ck in pending],
+            "mc_samples": (int(objective.num_mc_samples)
+                           if mc_escalation is not None else -1),
+            "mc_escalated_at": mc_escalated_at,
+            # fixed-size encodings, as the JAX package writes them: the
+            # plateau trackers keep their last mc_patience entries, the
+            # event log pads to its configuration-bounded maximum
+            "mc_plateau": _pad_tail(mc_plateau, self._mc_patience),
+            "mc_plateau_mcse": _pad_tail(mc_plateau_mcse, self._mc_patience),
+            "mc_events": _pad_events(mc_events, mc_event_cap),
+        }
         while pending:
             if process_check(pending.popleft()):
                 pending.clear()
@@ -507,17 +660,18 @@ class FASO(Optimizer):
 
         if k_stopped is not None:
             print("Convergence reached at iteration", k_stopped)
-        elif k_conv is None:
-            print("WARNING: stationarity not reached after maximum number "
-                  "of iterations")
-            print("WARNING: consider raising the learning rate or the "
-                  "maximum number of iterations")
-        else:
-            print("WARNING: stationarity reached but MCSE too large and/or "
-                  "ESS too small")
-            if mcse is not None:
-                print("WARNING: maximum MCSE = {:.3g}".format(np.max(mcse)))
-                print("WARNING: minimum ESS = {:.1f}".format(np.min(eff)))
+        elif not timed_out:
+            if k_conv is None:
+                print("WARNING: stationarity not reached after maximum number "
+                      "of iterations")
+                print("WARNING: consider raising the learning rate or the "
+                      "maximum number of iterations")
+            else:
+                print("WARNING: stationarity reached but MCSE too large and/or "
+                      "ESS too small")
+                if mcse is not None:
+                    print("WARNING: maximum MCSE = {:.3g}".format(np.max(mcse)))
+                    print("WARNING: minimum ESS = {:.1f}".format(np.min(eff)))
 
         results = {}
         for name, h in history.items():
@@ -535,11 +689,23 @@ class FASO(Optimizer):
         results["k_conv"] = k_conv
         results["k_Rhat"] = k_Rhat
         results["k_stopped"] = k_stopped
+        results["timed_out"] = timed_out
         if mc_escalation is not None:
             results["mc_escalation_history"] = np.asarray(
                 mc_events, dtype=np.int64).reshape(-1, 2)
         results["opt_param"] = iterate_average
         results["opt_state"] = opt_state
+        results["resume_state"] = {
+            "var_param": var_param,
+            "opt_state": opt_state,
+            "obj_state": obj_state,
+            "generator_state": generator.get_state(),
+            "ring": ring,
+            "t": t,
+            "k": k,
+            "total_opt_time": total_opt_time,
+            **resume_pre_drain,
+        }
         return results
 
 
@@ -606,18 +772,19 @@ class RAABBVI(FASO):
     Wraps FASO rounds at geometrically decaying learning rates; terminates
     when the predicted benefit of a further decay (symmetrized-KL gap,
     estimated by Bayesian weighted regression of ``log SKL`` on ``log lr``)
-    no longer justifies the predicted iteration cost.
+    no longer justifies the predicted iteration cost. With
+    ``init_rmsprop=True`` the first round is a warm start with plain
+    ``RMSProp`` under a default ``FASO`` (reference optimization.py:815-818).
     """
 
     def __init__(self, sgo, *, rho=0.5, iters0=1000, accuracy_threshold=0.1,
                  inefficiency_threshold=1.0, init_rmsprop=False, **kwargs):
-        if init_rmsprop:
-            raise not_ported("RAABBVI(init_rmsprop=True)", 7)
         super().__init__(sgo, **kwargs)
         self._iters0 = int(iters0)
         self._rho = float(rho)
         self._accuracy_threshold = float(accuracy_threshold)
         self._inefficiency_threshold = float(inefficiency_threshold)
+        self._init_rmsprop = bool(init_rmsprop)
         if rho < 0 or rho > 1:
             raise ValueError('"rho" must be between zero and one')
 
@@ -718,6 +885,16 @@ class RAABBVI(FASO):
                               > self._inefficiency_threshold)
         return fit, terminated, relative_skl, relative_iters
 
+    # outer-loop scalar histories carried through whole-run resume; the
+    # *_NONE lists may hold None entries (encoded as -1), the *_INT lists
+    # restore as Python ints, the rest as floats
+    _RESUME_HISTS_NONE = ("k_Rhat", "k_conv", "k_mcse")
+    _RESUME_HISTS_INT = ("conv_iters_hist", "predicted_iters_hist",
+                         "k_stopped_final_hist")
+    _RESUME_HISTS_FLOAT = ("learning_rate_hist", "SKL_history", "kappa_hist",
+                           "c_hist", "stopping_crt")
+    _RESUME_HISTS = _RESUME_HISTS_NONE + _RESUME_HISTS_INT + _RESUME_HISTS_FLOAT
+
     def optimize(self, K_max, objective, init_param, generator=None,
                  progress_callback=None, resume_state=None, max_time=None):
         """Run RAABBVI. ``progress_callback(k, avg_loss)`` fires at every
@@ -725,11 +902,22 @@ class RAABBVI(FASO):
 
         The weighted regression's HMC draws from its own generator on
         :data:`HMC_DEVICE`, seeded from ``generator``'s initial seed.
+
+        ``max_time`` (seconds; default the constructor's) budgets the whole
+        run: each round gets what is left, and a run that runs out stops
+        between rounds or, through FASO's budget, inside one, with
+        ``timed_out`` set and a ``resume_state`` that continues it.
+        ``resume_state``: the ``results["resume_state"]`` of an earlier run
+        that ran out of iterations (``K_max``) or time; the outer loop
+        resumes (round counter, decayed learning rate and threshold,
+        histories, step-rule state, both generators) and, when the run
+        stopped inside a round, that round through its own FASO state
+        under ``"flight"``. With the same or a larger ``K_max`` the resumed
+        run reproduces the uninterrupted one (set ``max_history``, so the
+        ring sizes agree). ``results["resume_state"]`` is ``None`` once the
+        termination rule fired.
         """
-        if resume_state is not None:
-            raise not_ported("RAABBVI resume_state", 7)
-        if max_time is not None:
-            raise not_ported("RAABBVI max_time", 7)
+        max_time = self._max_time if max_time is None else float(max_time)
         if generator is None:
             generator = default_generator(init_param.device)
         if not objective.approx.supports_kl:
@@ -737,15 +925,24 @@ class RAABBVI(FASO):
                   "Using FASO.", flush=True)
             return super().optimize(K_max, objective, init_param,
                                     generator=generator,
-                                    progress_callback=progress_callback)
+                                    progress_callback=progress_callback,
+                                    max_time=max_time)
         hmc_generator = torch.Generator(HMC_DEVICE).manual_seed(
             generator.initial_seed())
+        # the whole-run clock is read only under a budget, so the stubbed
+        # clocks of the tests keep their schedules
+        run_start = _now() if max_time is not None else None
+
+        def time_left():
+            return (None if max_time is None
+                    else max(max_time - (_now() - run_start), 0.0))
 
         K_max = int(K_max)
         k_new = -1        # iterations used at the current learning rate
         k = 0             # number of learning-rate decays
         k_total = 0       # total iterations across rounds
         k_add = 0
+        budget_spent = 0  # iterations of the finished rounds (+1 each)
         k_stopped_final = None
         sgo = self._sgo
         diagnostics = sgo._diagnostics
@@ -761,31 +958,139 @@ class RAABBVI(FASO):
         history["iterate_average_curr_hist"].append(iterate_average_curr)
         history["k_mcse"].append(0)
         stopped = False
+        budget_spent_on_resume = False
+        timed_out = False
         relative_skl = relative_iters = None
+        flight = None          # the stopped round's FASO state, on resume
+        resume_payload = None  # what results["resume_state"] carries
         # cumulative (iteration, new_S) escalation events across rounds: the
         # climbed num_mc_samples persists on the shared objective
         mc_events_outer = []
 
-        while not stopped:
-            K_max -= (k_new + 1)
+        if resume_state is not None:
+            rs = resume_state
+            k = int(rs["k"])
+            k_total = int(rs["k_total"])
+            k_add = int(rs["k_add"])
+            budget_spent = int(rs["budget_spent"])
+            steps_run_total = int(rs["steps_run_total"])
+            lr_round = float(rs["lr_round"])
+            mcse_round = float(rs["mcse_round"])
+            iterate_average_curr = torch.as_tensor(
+                rs["iterate_average_curr"]).to(iterate_average_curr)
+            opt_state = _clone_state(rs["opt_state"]) if rs["opt_state"] else None
+            _set_generator_state(generator, rs["generator_state"])
+            _set_generator_state(hmc_generator, rs["hmc_generator_state"])
+            history = defaultdict(list)
+            history["iterate_average_curr_hist"] = list(
+                torch.as_tensor(rs["iterate_average_curr_hist"]).to(iterate_average_curr))
+            for name in self._RESUME_HISTS:
+                vals = np.asarray(rs["hists"][name])
+                if name in self._RESUME_HISTS_NONE:
+                    history[name] = [None if int(v) < 0 else int(v) for v in vals]
+                elif name in self._RESUME_HISTS_INT:
+                    history[name] = [int(v) for v in vals]
+                else:
+                    history[name] = [float(v) for v in vals]
+            flight = rs["flight"] if isinstance(rs["flight"], dict) else None
+            if self._mc_escalation is not None:
+                # a resume between rounds re-arms the escalated sample count
+                # (inside a round, the flight's FASO state carries it)
+                rs_S = int(rs.get("mc_samples", -1))
+                if rs_S > 0:
+                    objective.num_mc_samples = rs_S
+                mc_events_outer = [
+                    (int(a), int(b)) for a, b in np.asarray(
+                        rs.get("mc_events_outer", np.zeros((0, 2)))).reshape(-1, 2)
+                    if a >= 0]
+            # the budget left for the stopped (or next) round: what an
+            # uninterrupted run with this K_max would have given it
+            K_max -= budget_spent
             if K_max <= 0:
-                break
+                print("WARNING: resume budget already spent; increase K_max")
+                # fall through to the standard results, so the restored
+                # histories come back under the usual keys; the run stays
+                # resumable with a larger K_max
+                budget_spent_on_resume = True
+                resume_payload = resume_state
+
+        def outer_snapshot():
+            """The outer state as of the start of the current round."""
+            hists = {}
+            for name in self._RESUME_HISTS:
+                vals = history[name]
+                if name in self._RESUME_HISTS_NONE:
+                    hists[name] = np.asarray([-1 if v is None else int(v) for v in vals],
+                                             dtype=np.int64)
+                elif name in self._RESUME_HISTS_INT:
+                    hists[name] = np.asarray(vals, dtype=np.int64)
+                else:
+                    hists[name] = np.asarray(vals, dtype=float)
+            return {
+                "k": k, "k_total": k_total, "k_add": k_add,
+                "budget_spent": budget_spent,
+                "steps_run_total": steps_run_total,
+                "lr_round": lr_round, "mcse_round": mcse_round,
+                "iterate_average_curr": iterate_average_curr,
+                "opt_state": opt_state if opt_state is not None else {},
+                "generator_state": generator.get_state(),
+                "hmc_generator_state": hmc_generator.get_state(),
+                "iterate_average_curr_hist": torch.stack(
+                    history["iterate_average_curr_hist"]),
+                "hists": hists,
+                "mc_samples": (int(objective.num_mc_samples)
+                               if self._mc_escalation is not None else -1),
+                "mc_events_outer": _pad_events(
+                    mc_events_outer, max(len(mc_events_outer), 1)),
+            }
+
+        while not stopped and not budget_spent_on_resume:
+            if flight is None:
+                budget_spent += k_new + 1
+                K_max -= (k_new + 1)
+                out_of_time = max_time is not None and time_left() <= 0
+                if K_max <= 0 or out_of_time:
+                    # the iteration or wall-clock budget ran out between
+                    # rounds: resumable at the next round
+                    timed_out = out_of_time and K_max > 0
+                    resume_payload = {**outer_snapshot(), "flight": ()}
+                    break
+            round_snapshot = outer_snapshot()
             iterate_average_prev = iterate_average_curr
+            # a resumed round already ran this many steps before it stopped;
+            # its FASO counts k from the round start but returns only the
+            # steps after the resume
+            flight_presteps = int(flight["k"]) if flight is not None else 0
             round_steps_offset = steps_run_total
             round_cb = None
             if progress_callback is not None:
                 round_cb = (lambda kk, loss, _off=steps_run_total:
                             progress_callback(_off + kk, loss))
-            opt = super().optimize(K_max, objective, iterate_average_curr,
-                                   generator=generator, init_opt_state=opt_state,
-                                   learning_rate=lr_round,
-                                   mcse_threshold=mcse_round,
-                                   progress_callback=round_cb)
-            if not averaged:
-                # persist non-averaged SGO state across rounds (the
-                # reference only resets averaged SGOs, 865-866)
-                opt_state = opt["opt_state"]
-            steps_run_total += int(opt["value_history"].shape[0])
+            round_max_time = time_left()
+            if k == 0 and self._init_rmsprop:
+                # the warm-start round with plain RMSProp (reference 815-818)
+                faso = FASO(RMSProp(learning_rate=lr_round, diagnostics=diagnostics),
+                            max_history=self._max_history)
+                opt = faso.optimize(K_max, objective, iterate_average_curr,
+                                    generator=generator, resume_state=flight,
+                                    progress_callback=round_cb,
+                                    max_time=round_max_time)
+            else:
+                opt = super().optimize(K_max, objective, iterate_average_curr,
+                                       generator=generator, init_opt_state=opt_state,
+                                       learning_rate=lr_round,
+                                       mcse_threshold=mcse_round,
+                                       resume_state=flight,
+                                       progress_callback=round_cb,
+                                       max_time=round_max_time)
+                if not averaged:
+                    # persist non-averaged SGO state across rounds (the
+                    # reference only resets averaged SGOs, 865-866)
+                    opt_state = opt["opt_state"]
+            timed_out = opt["timed_out"]
+            flight = None
+            if "value_history" in opt:
+                steps_run_total += flight_presteps + int(opt["value_history"].shape[0])
             if opt["k_stopped"] is not None and k != 0:
                 history["conv_iters_hist"].append(opt["k_stopped"])
             iterate_average_curr = opt["opt_param"]
@@ -793,6 +1098,7 @@ class RAABBVI(FASO):
             history["rhat_verdicts"].append(opt["rhat_verdicts"])
             k_new = opt["k_stopped"]
             if len(opt.get("mc_escalation_history", ())):
+                # round-local event iterations on the cumulative axis
                 mc_events_outer.extend(
                     (int(ev_k) + round_steps_offset, int(ev_S))
                     for ev_k, ev_S in opt["mc_escalation_history"])
@@ -806,10 +1112,12 @@ class RAABBVI(FASO):
                 if opt["k_conv"] is not None and k_new is not None
                 else opt["k_conv"])
             history["k_mcse"].append(k_new + k_add if k_new is not None else k_new)
-            history["value_history"].append(opt["value_history"])
+            if "value_history" in opt:
+                history["value_history"].append(opt["value_history"])
             if diagnostics:
-                history["grad_history"].append(opt["grad_history"])
-                history["descent_dir_history"].append(opt["descent_dir_history"])
+                if "grad_history" in opt:
+                    history["grad_history"].append(opt["grad_history"])
+                    history["descent_dir_history"].append(opt["descent_dir_history"])
                 if opt["k_conv"] is not None and "ess_history" in opt:
                     history["ess_history"].extend(opt["ess_history"])
                     history["mcse_history"].extend(opt["mcse_history"])
@@ -825,7 +1133,10 @@ class RAABBVI(FASO):
             if history["iterate_average_k_history"]:
                 k_add = history["iterate_average_k_history"][-1]
 
-            if k_new is None:  # maximum iterations reached mid-round
+            if k_new is None:  # the iteration or time budget ran out mid-round
+                # resumable: the outer state as of this round's start, plus
+                # the round's own FASO state
+                resume_payload = {**round_snapshot, "flight": opt["resume_state"]}
                 break
 
             # learning-rate decay and threshold tightening (reference 862-866)
@@ -866,7 +1177,7 @@ class RAABBVI(FASO):
         if stopped:
             print("Termination rule reached at iteration", k_total)
             print("Inefficiency Index:", relative_skl * relative_iters)
-        else:
+        elif not budget_spent_on_resume and not timed_out:
             print("WARNING: maximum number of iterations reached before "
                   "stopping rule was triggered")
 
@@ -888,10 +1199,13 @@ class RAABBVI(FASO):
                     results[name] = h
         results["opt_param"] = iterate_average_curr
         results["k_stopped_final"] = k_stopped_final
+        results["timed_out"] = timed_out
         if self._mc_escalation is not None:
             results["mc_escalation_history"] = np.asarray(
                 mc_events_outer, dtype=np.int64).reshape(-1, 2)
         results["k_Rhat"] = history["k_Rhat"]
         results["k_mcse"] = history["k_mcse"]
         results["k_conv"] = history["k_conv"]
+        # None once the termination rule fired (nothing left to resume)
+        results["resume_state"] = resume_payload
         return results

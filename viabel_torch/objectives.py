@@ -13,6 +13,16 @@ JAX package's explicit PRNG key.
   reparameterized gradient by default.
 - ``AlphaDivergence``: the CUBO objective with the reference's
   gradient ``alpha J^T w^alpha / S``.
+- ``DISInclusiveKL``: the inclusive KL by distilled importance sampling,
+  the one objective that carries state between steps.
+
+Objective-state protocol: an objective whose estimator carries state
+between steps exposes it as a dict of tensors, ``init_obj_state`` /
+``value_and_grad_with_state(var_param, generator, obj_state) -> (value,
+grad, obj_state)``, and the optimizers thread it through their loops
+(``check_obj_state`` at segment boundaries, ``resize_obj_state`` when
+FASO's escalation changes the sample count). A stateless objective has
+the empty state ``{}``.
 """
 
 import math
@@ -20,14 +30,8 @@ import math
 import torch
 from torch import func
 
-from .utils import deferred_names
-
 __all__ = ["VariationalObjective", "StochasticVariationalObjective",
-           "ExclusiveKL", "IWELBO", "AlphaDivergence"]
-
-#: objectives of the JAX package not ported yet, by ROADMAP.md item
-NOT_PORTED = {"DISInclusiveKL": "9b"}
-__getattr__ = deferred_names(__name__, NOT_PORTED)
+           "ExclusiveKL", "IWELBO", "AlphaDivergence", "DISInclusiveKL"]
 
 _HESSIAN_METHODS = (None, "full", "mean_only", "loo_diag_approx", "loo_direct_approx")
 
@@ -53,6 +57,27 @@ class VariationalObjective:
     def update(self, var_param, direction):
         """Apply a descent step."""
         return var_param - direction
+
+    # -- objective-state protocol --------------------------------------------
+    def init_obj_state(self, var_param):
+        """Initial estimator state carried through the optimizer loop
+        (``{}`` for a stateless objective)."""
+        return {}
+
+    def value_and_grad_with_state(self, var_param, generator, obj_state):
+        """One step: ``(var_param, generator, state) -> (value, grad,
+        state)``."""
+        value, grad = self.value_and_grad(var_param, generator)
+        return value, grad, obj_state
+
+    def check_obj_state(self, obj_state):
+        """Host-side validity hook, called at segment boundaries and at the
+        end of a run; raises if the loop recorded a failure."""
+
+    def resize_obj_state(self, obj_state, var_param):
+        """The state after a ``num_mc_samples`` change (FASO's
+        ``mc_escalation`` rung boundary): a fresh one by default."""
+        return self.init_obj_state(var_param)
 
     @property
     def approx(self):
@@ -81,7 +106,8 @@ class StochasticVariationalObjective(VariationalObjective):
     def set_num_mc_samples(self, value):
         """Change the Monte Carlo sample count mid-run (the API behind
         ``FASO(mc_escalation=...)``'s rung climbs); it takes effect at the
-        next step."""
+        next step. An optimizer threading estimator state re-derives it
+        with :meth:`resize_obj_state` (FASO's escalation does)."""
         self.num_mc_samples = int(value)
 
 
@@ -129,6 +155,11 @@ class ExclusiveKL(StochasticVariationalObjective):
         if approx.supports_entropy:
             samples, entropy = approx.sample_and_entropy(var_param, n, generator)
             lower_bound = torch.mean(model(samples)) + entropy
+        elif hasattr(approx, "sample_and_log_density"):
+            # families whose density is only tractable at their own samples
+            # (square NeuralNet pushforwards)
+            samples, log_q = approx.sample_and_log_density(var_param, n, generator)
+            lower_bound = torch.mean(model(samples) - log_q)
         else:
             samples = approx.sample(var_param, n, generator)
             lower_bound = torch.mean(model(samples)
@@ -292,3 +323,239 @@ class AlphaDivergence(StochasticVariationalObjective):
             (jtw,) = torch.autograd.grad(log_weights, vp, grad_outputs=scaled)
         value = torch.log(torch.mean(scaled)) / alpha + log_norm
         return value, alpha * jtw / S
+
+
+class _MultinomialResampler:
+    """The default resampling draw: ``n`` indices with replacement, with
+    probabilities ``p``, from the generator."""
+
+    @staticmethod
+    def choice(generator, p, n):
+        return torch.multinomial(p, n, replacement=True, generator=generator)
+
+
+class DISInclusiveKL(StochasticVariationalObjective):
+    """Inclusive KL by distilled importance sampling (reference
+    objectives.py:280-416; the JAX package's objectives.py:542-907).
+
+    The estimator carries its tempering ``eps``, a degeneracy flag ``ok``,
+    a step counter and, with resampling, the cache of the last refresh
+    (``samples``, ``w_norm``, ``w_sum``) from step to step, as the dict of
+    the objective-state protocol. The counter ``step`` is a CPU tensor, so
+    the refresh every ``num_resampling_batches`` steps is decided on the
+    host without a device synchronisation; everything else lives on the
+    parameter's device, and the 50-step bisection on ``eps`` runs there
+    through ``torch.where`` on 0-d tensors.
+
+    Like the JAX package, the weights are self-normalised (see
+    :meth:`_weights`) and degenerate weights are recorded in ``ok`` and
+    raised by :meth:`check_obj_state` at the next segment boundary.
+
+    ``resampler``: the hook that draws the resampling indices, an object
+    with ``choice(generator, p, n) -> (n,) index tensor``; the default is
+    ``torch.multinomial`` with replacement. The JAX package draws with
+    ``jax.random.choice``, whose stream torch cannot reproduce, so a test
+    injects the indices here, as it injects base draws through a family's
+    ``base_sampler``.
+    """
+
+    def __init__(self, approx, model, num_mc_samples, ess_target,
+                 temper_prior, temper_prior_params, use_resampling=True,
+                 num_resampling_batches=1, w_clip_threshold=10, resampler=None):
+        # no model of the port draws its own minibatch yet, so there is no
+        # subsampled model to refuse (ROADMAP.md, Queue 1 item 10)
+        self._ess_target = float(ess_target)
+        self._w_clip_threshold = float(w_clip_threshold)
+        self._max_bisection_its = 50
+        self._max_eps = 1.0
+        self._use_resampling = bool(use_resampling)
+        self._num_resampling_batches = int(num_resampling_batches)
+        self._resampling_batch_size = max(1, int(ess_target) // int(num_resampling_batches))
+        self._resampler = resampler or _MultinomialResampler()
+        self._obj_state = None  # mirror for direct value_and_grad calls
+        self._temper_prior = temper_prior
+        self._temper_prior_params = torch.as_tensor(
+            temper_prior_params, dtype=temper_prior.dtype, device=temper_prior.device)
+        super().__init__(approx, model, num_mc_samples)
+
+    @property
+    def num_mc_samples(self):
+        return self._num_mc_samples
+
+    @num_mc_samples.setter
+    def num_mc_samples(self, value):
+        self._num_mc_samples = int(value)
+        # the mirrored state holds old-S shapes
+        self._obj_state = None
+
+    # -- the estimator's parts ------------------------------------------------
+    def _temper_log_density(self, samples):
+        return self._temper_prior.log_density(self._temper_prior_params, samples)
+
+    def _tempered_log_pdf(self, eps, samples, log_p, ltp=None):
+        if ltp is None:
+            ltp = self._temper_log_density(samples)
+        return eps * ltp + (1.0 - eps) * log_p
+
+    def _weights(self, eps, samples, log_p, log_q, ltp=None):
+        """Self-normalised importance weights ``exp(logw - max logw)``.
+
+        A deliberate departure from the reference (objectives.py:322-331),
+        kept from the JAX package: the raw ``exp(logw)`` of an
+        unnormalised target underflows to all zeros in float32 already at
+        d ~ 100. ESS and proportional clipping are scale-invariant, so the
+        bisection visits the same ``eps`` sequence.
+        """
+        logw = self._tempered_log_pdf(eps, samples, log_p, ltp) - log_q
+        return torch.exp(logw - torch.max(logw))
+
+    def _eps_and_weights(self, eps_guess, samples, log_p, log_q):
+        """Bisection on ``eps`` to hit the ESS target (reference 338-368):
+        ``(eps, ess, weights)``, all on the device."""
+        ltp = self._temper_log_density(samples)
+
+        def ess_of(w):
+            return torch.sum(w) ** 2 / torch.sum(w**2)
+
+        lower = torch.zeros((), dtype=log_q.dtype, device=log_q.device)
+        upper = torch.as_tensor(eps_guess, dtype=log_q.dtype, device=log_q.device)
+        guess = (lower + upper) / 2.0
+        for _ in range(self._max_bisection_its):
+            w = self._weights(guess, samples, log_p, log_q, ltp)
+            too_big = ess_of(w) > self._ess_target
+            upper = torch.where(too_big, guess, upper)
+            lower = torch.where(too_big, lower, guess)
+            guess = (lower + upper) / 2.0
+        # endpoint handling (reference objectives.py:362-366)
+        guess = torch.where(lower == 0.0, 0.0, guess)
+        guess = torch.where(upper == self._max_eps, self._max_eps, guess)
+        w = self._weights(guess, samples, log_p, log_q, ltp)
+        return guess, ess_of(w), w
+
+    def _clip_weights(self, w):
+        """Proportional weight clipping (the corrected form of reference
+        370-386): no weight exceeds ``threshold`` times the total, the
+        clipped mass goes to the unclipped weights in proportion, and the
+        total is kept; 16 passes. A no-op for ``threshold >= 1`` (the
+        default, 10)."""
+        tau = self._w_clip_threshold
+        if tau >= 1.0 or tau * w.shape[0] <= 1.0:
+            return w
+        total = torch.sum(w)
+        p = w / total
+        for _ in range(16):
+            over = p > tau
+            excess = torch.sum(torch.where(over, p - tau, 0.0))
+            keep = torch.sum(torch.where(over, 0.0, p))
+            scale = torch.where(keep > 0, 1.0 + excess / keep, 1.0)
+            p = torch.where(over, tau, p * scale)
+        return p * total
+
+    def _refresh(self, var_param, generator, eps_guess):
+        """Draw samples, bisect ``eps``, clip the weights (reference
+        392-398): ``(samples, log_q, w_clipped, eps)``. The samples, the
+        model and the weights carry no graph; ``log_q`` carries one where
+        the caller records it."""
+        S = self.num_mc_samples
+        with torch.no_grad():
+            samples = self.approx.sample(var_param.detach(), S, generator)
+            log_p = self.model(samples)
+        log_q = self.approx.log_density(var_param, samples)
+        with torch.no_grad():
+            eps, _, w = self._eps_and_weights(eps_guess, samples, log_p, log_q.detach())
+            w_clipped = self._clip_weights(w)
+        return samples, log_q, w_clipped, eps
+
+    @staticmethod
+    def _ok(state, w_sum):
+        return state["ok"] & torch.isfinite(w_sum) & (w_sum > 0.0)
+
+    def _step_no_resampling(self, var_param, generator, state):
+        S = self.num_mc_samples
+        vp = var_param.detach().requires_grad_(True)
+        with torch.enable_grad():
+            _, log_q, w_clipped, eps = self._refresh(vp, generator, state["eps"])
+            loss = -torch.dot(w_clipped, log_q) / S
+            (grad,) = torch.autograd.grad(loss, vp)
+        # the reference raises on degenerate weights in both modes
+        # (objectives.py:326-329); self-normalised, they show as a
+        # non-finite weight mass
+        ok = self._ok(state, torch.sum(w_clipped))
+        return loss.detach(), grad, {"eps": eps, "step": state["step"] + 1, "ok": ok}
+
+    def _step_resampling(self, var_param, generator, state):
+        S = self.num_mc_samples
+        if int(state["step"]) % self._num_resampling_batches == 0:
+            # log q is read only through the weights here: no graph, so no
+            # adjoint solve and no activations are kept
+            with torch.no_grad():
+                samples, _, w_clipped, eps = self._refresh(var_param, generator,
+                                                           state["eps"])
+                w_sum = torch.sum(w_clipped)
+                w_norm = w_clipped / w_sum
+        else:
+            samples, w_norm, w_sum, eps = (state["samples"], state["w_norm"],
+                                           state["w_sum"], state["eps"])
+        ok = self._ok(state, w_sum)
+        # a degenerate draw is flagged in ok and raised at the boundary;
+        # the indices then come from uniform weights, since a multinomial
+        # draw on non-finite weights is an error
+        usable = torch.isfinite(w_sum) & (w_sum > 0.0)
+        idx = self._resampler.choice(generator, torch.where(usable, w_norm, 1.0 / S),
+                                     self._resampling_batch_size)
+        resampled = samples[idx]
+        vp = var_param.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = torch.mean(-self.approx.log_density(vp, resampled)) * w_sum / S
+            (grad,) = torch.autograd.grad(loss, vp)
+        new_state = {"eps": eps, "step": state["step"] + 1, "samples": samples,
+                     "w_norm": w_norm, "w_sum": w_sum, "ok": ok}
+        return loss.detach(), grad, new_state
+
+    # -- objective-state protocol ---------------------------------------------
+    def init_obj_state(self, var_param):
+        dtype, device = var_param.dtype, var_param.device
+        state = {"eps": torch.tensor(self._max_eps, dtype=dtype, device=device),
+                 "step": torch.tensor(0),
+                 "ok": torch.tensor(True, device=device)}
+        if self._use_resampling:
+            S = self.num_mc_samples
+            state.update(
+                samples=torch.zeros((S, self.approx.dim), dtype=dtype, device=device),
+                w_norm=torch.zeros((S,), dtype=dtype, device=device),
+                w_sum=torch.tensor(1.0, dtype=dtype, device=device))
+        return state
+
+    def value_and_grad_with_state(self, var_param, generator, obj_state):
+        if self._use_resampling:
+            return self._step_resampling(var_param, generator, obj_state)
+        return self._step_no_resampling(var_param, generator, obj_state)
+
+    def check_obj_state(self, obj_state):
+        if "ok" in obj_state and not bool(obj_state["ok"]):
+            # the reference's "All weights zero!" raise (objectives.py:
+            # 326-329); self-normalised, degeneracy shows as non-finite
+            # log weights instead
+            raise ValueError("Non-finite importance weights! "
+                             "Suggests overflow in importance density.")
+
+    def resize_obj_state(self, obj_state, var_param):
+        """The state after a ``num_mc_samples`` change: ``eps`` and ``ok``
+        carry over (escalation neither restarts the annealing nor hides a
+        weight blow-up already seen); the sample cache is rebuilt at the
+        new count and the refresh clock zeroes, so the next step refreshes
+        it before anything reads it."""
+        fresh = self.init_obj_state(var_param)
+        fresh["eps"] = obj_state["eps"]
+        fresh["ok"] = obj_state["ok"]
+        return fresh
+
+    def value_and_grad(self, var_param, generator):
+        """Direct calls: the state is mirrored on the object and checked
+        every step, like the reference."""
+        if self._obj_state is None:
+            self._obj_state = self.init_obj_state(var_param)
+        value, grad, self._obj_state = self.value_and_grad_with_state(
+            var_param, generator, self._obj_state)
+        self.check_obj_state(self._obj_state)
+        return value, grad

@@ -3,7 +3,10 @@
 Each rule is a pure ``(grad, state) -> (descent_dir, state)`` function
 with an explicit ``init_state``; ``optimize`` runs the fixed-learning-rate
 loop eagerly, one step per Python iteration. The iterate average is kept
-in a ``(window, D)`` ring tensor.
+in a ``(window, D)`` ring tensor. An objective's estimator state (the
+objective-state protocol of :mod:`viabel_torch.objectives`) is threaded
+through the loop; the protocol is duck-typed, so an objective that only
+defines ``value_and_grad`` and ``update`` works unchanged.
 """
 
 import torch
@@ -16,6 +19,25 @@ def default_generator(device):
     """The generator used when a caller passes none (seed 0, like the JAX
     package's ``PRNGKey(0)`` default)."""
     return torch.Generator(device).manual_seed(0)
+
+
+def _obj_init_state(objective, var_param):
+    fn = getattr(objective, "init_obj_state", None)
+    return fn(var_param) if fn is not None else {}
+
+
+def _obj_step(objective, var_param, generator, obj_state):
+    fn = getattr(objective, "value_and_grad_with_state", None)
+    if fn is not None:
+        return fn(var_param, generator, obj_state)
+    value, grad = objective.value_and_grad(var_param, generator)
+    return value, grad, obj_state
+
+
+def _obj_check_state(objective, obj_state):
+    fn = getattr(objective, "check_obj_state", None)
+    if fn is not None:
+        fn(obj_state)
 
 
 class Optimizer:
@@ -47,14 +69,15 @@ class StochasticGradientOptimizer(Optimizer):
         """Pure step rule: ``(grad, state) -> (descent_dir, new_state)``."""
         return grad, state
 
-    def step(self, objective, var_param, state, generator, learning_rate):
-        """One step: ``(var_param, state, value, direction, grad)``."""
-        value, grad = objective.value_and_grad(var_param, generator)
+    def step(self, objective, var_param, state, obj_state, generator, learning_rate):
+        """One step: ``(var_param, state, obj_state, value, direction,
+        grad)``."""
+        value, grad, obj_state = _obj_step(objective, var_param, generator, obj_state)
         direction, state = self.descent_direction(grad, state)
         var_param = objective.update(var_param, learning_rate * direction)
         if self._weight_decay > 0.0:
             var_param = var_param * (1.0 - self._weight_decay)
-        return var_param, state, value, direction, grad
+        return var_param, state, obj_state, value, direction, grad
 
     #: steps per progress report when a ``progress_callback`` is given
     progress_every = 200
@@ -65,7 +88,9 @@ class StochasticGradientOptimizer(Optimizer):
 
         ``progress_callback(k, avg_loss)`` is invoked every
         ``progress_every`` steps (and at the end) with the mean loss of
-        the steps since the last report.
+        the steps since the last report. The objective's state is checked
+        at the end of the run, and a non-empty one is returned as
+        ``results["obj_state"]``.
         """
         var_param = init_param.detach().clone()
         if generator is None:
@@ -77,10 +102,11 @@ class StochasticGradientOptimizer(Optimizer):
         ring = torch.zeros((window, var_param.shape[0]), dtype=var_param.dtype,
                            device=var_param.device)
         state = self.init_state(var_param)
+        obj_state = _obj_init_state(objective, var_param)
         values, params, dirs = [], [], []
         for i in range(n_iters):
-            var_param, state, value, direction, _ = self.step(
-                objective, var_param, state, generator, self._learning_rate)
+            var_param, state, obj_state, value, direction, _ = self.step(
+                objective, var_param, state, obj_state, generator, self._learning_rate)
             ring[i % window] = var_param
             values.append(value)
             if diagnostics:
@@ -90,6 +116,7 @@ class StochasticGradientOptimizer(Optimizer):
                     (i + 1) % self.progress_every == 0 or i + 1 == n_iters):
                 seg_len = (i + 1) % self.progress_every or self.progress_every
                 progress_callback(i + 1, float(torch.stack(values[-seg_len:]).mean()))
+        _obj_check_state(objective, obj_state)
         results = {"value_history": torch.stack(values)}
         if diagnostics:
             results["variational_param_history"] = torch.stack(params)
@@ -98,6 +125,8 @@ class StochasticGradientOptimizer(Optimizer):
             results["opt_param"] = ring.sum(dim=0) / min(n_iters, window)
         else:
             results["opt_param"] = var_param
+        if obj_state:
+            results["obj_state"] = obj_state
         return results
 
 
