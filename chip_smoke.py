@@ -7,7 +7,11 @@ short run of each family, control-variate estimator and step rule that
 carries no kernel, and the kernels' new paths in float64 against the CPU;
 then DISInclusiveKL's two training modes, a FASO run stopped, written to
 a checkpoint, read back and resumed against the uninterrupted run, and
-the neural families (NVPFlow, a square NeuralNet).
+the neural families (NVPFlow, a square NeuralNet); then bbvi's pilot
+standardization on a heteroscedastic target with vi_diagnostics in the
+user's space, the quasi-Monte Carlo base samplers, minibatch VI on a
+subsampled model, Pathfinder and bbvi's Pathfinder initialization, and the
+transforms, affine folds and scrambles in float64 against the CPU.
 
     python3 chip_smoke.py
 
@@ -55,6 +59,17 @@ DIS_S, DIS_ESS = 100, 50  # DISInclusiveKL's draws and ESS target at d = 1000
 DIS_ITERS, DIS_PLAIN_ITERS = 1000, 300  # [dis] runs (a) and (b)
 RESUME_AT, RESUME_ITERS = 400, 1000     # [resume]
 FLOW_ITERS, NET_ITERS = 300, 100        # [flows]
+#: [standardize]: benchmarks/standardize_flagship.py's configuration
+STD_PILOT = dict(n_iters=8000, num_mc_samples=40, learning_rate=0.02)
+STD_FASO = dict(max_history=1200, rhat_quantile=0.999, rhat_backoff=1.4)
+STD_ITERS, STD_S, STD_LR = 30000, 400, 0.01
+QMC_ITERS = 300                          # [qmc], each sampler
+QMC_VAR_DIM, QMC_VAR_S, QMC_VAR_REPS = 20, 64, 200
+SUB_N_DATA, SUB_BATCH, SUB_ITERS = 100_000, 512, 500  # [subsampled]
+PF_ITERS, PF_HISTORY = 60, 6             # [pathfinder]
+#: float64, card against CPU, in [extras_f64]; the L-BFGS path compounds
+#: round-off over its iterations
+EXTRAS_RTOL, PF_PATH_RTOL, PF_PATH_ITERS = 1e-12, 1e-9, 10
 N_DIAG_SAMPLES = 100000  # vi_diagnostics' default n_samples
 #: NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, and FLOP/s outside the
 #: tensor cores by element type
@@ -692,8 +707,10 @@ class TableNormal:
 
 
 def max_rel_err(got, want):
-    return float((got.detach().cpu() - want.detach()).abs().max()
-                 / want.detach().abs().max())
+    """Max-norm relative error of ``got`` (any device) against ``want`` (on
+    the CPU); an all-zero ``want`` gives the absolute error."""
+    scale = max(float(want.detach().abs().max()), 1e-300)
+    return float((got.detach().cpu() - want.detach()).abs().max()) / scale
 
 
 def phase_paths_f64():
@@ -964,6 +981,358 @@ def phase_flows():
         raise AssertionError(f"[flows] [neural_net_square] kernel launches {launches}")
 
 
+def hetero_target(device=None, dtype=torch.float32):
+    """benchmarks/standardize_flagship.py:39-44: mean randn, sd exp(0.5
+    randn), from numpy seed 0, as zoo.diagonal_gaussian."""
+    from viabel_torch.models import zoo
+    rng = np.random.RandomState(0)
+    mean = rng.randn(FLAGSHIP_DIM)
+    stdev = np.exp(0.5 * rng.randn(FLAGSHIP_DIM))
+    model, _ = zoo.diagonal_gaussian(mean, stdev, device=device or DEVICE, dtype=dtype)
+    return model, mean, stdev
+
+
+def phase_standardize(path_launches):
+    """bbvi(standardize=True) at d = 1000 on the heteroscedastic target: the
+    mean-field pilot (8,000 steps, S = 40), then FASO over the entropy
+    ExclusiveKL on FullRankGaussian(1000) at S = 400 with a 1,200-row ring
+    (kernel 1 in every check), folded back into the user's space; then
+    vi_diagnostics on the folded result (kernel 3 at (1000, 100,000))."""
+    import viabel_torch as vt
+    import viabel_torch.convenience as conv
+    d = FLAGSHIP_DIM
+    model, mean, stdev = hetero_target()
+    approx = vt.FullRankGaussian(d, device=DEVICE, dtype=torch.float32)
+    pilot_seconds = []
+    pilot = conv.pilot_standardize
+
+    def timed_pilot(*args, **kwargs):
+        start = time.perf_counter()
+        out = pilot(*args, **kwargs)
+        torch.cuda.synchronize()
+        pilot_seconds.append(time.perf_counter() - start)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    conv.pilot_standardize = timed_pilot
+    try:
+        res, wall, launches = timed_run(lambda: vt.bbvi(
+            d, log_density=model, approx=approx, fixed_lr=True, n_iters=STD_ITERS,
+            num_mc_samples=STD_S, learning_rate=STD_LR, standardize=True,
+            pilot_kwargs=STD_PILOT, RMS_kwargs=dict(diagnostics=False),
+            FASO_kwargs=STD_FASO, generator=torch.Generator(DEVICE).manual_seed(46)))
+    finally:
+        conv.pilot_standardize = pilot
+    path_launches["standardize"] = launches
+    est_mean, est_cov = approx.mean_and_cov(res["opt_param"])
+    est_sd = torch.sqrt(torch.diagonal(est_cov)).double().cpu().numpy()
+    est_mean = est_mean.double().cpu().numpy()
+    mean_err = float(np.max(np.abs(est_mean - mean) / stdev))
+    sd_err = float(np.max(np.abs(est_sd - stdev) / stdev))
+    _, p_scale = res["standardization"]["affine"]
+    pilot_err = float(np.max(np.abs(p_scale.double().cpu().numpy() - stdev) / stdev))
+    log(f"[standardize] pilot_seconds={pilot_seconds[0]:.3f} k_conv={res['k_conv']} "
+        f"k_stopped={res['k_stopped']} wall_s={wall:.3f} "
+        f"steps={int(res['value_history'].shape[0])} num_mc_samples="
+        f"{res['objective'].num_mc_samples} launches={launches} "
+        f"max_memory_allocated_bytes={torch.cuda.max_memory_allocated()}")
+    log(f"[standardize] user space: max_abs_mean_err_over_sd={mean_err:.6f} "
+        f"max_rel_sd_err={sd_err:.6f} pilot_max_rel_scale_err={pilot_err:.6f}")
+    if res["k_conv"] is None:
+        raise AssertionError("[standardize] FASO never passed its R-hat gate")
+    if not (mean_err < 0.05 and sd_err < 0.05):
+        raise AssertionError(f"[standardize] user-space moments off: mean {mean_err}, "
+                             f"sd {sd_err}")
+    if launches["ring_group_stats"] <= 0:
+        raise AssertionError("[standardize] the FASO checks never ran ring_group_stats")
+    if res["objective"].model is not model:
+        raise AssertionError("[standardize] the objective did not get the user's model back")
+    objective = res["objective"]
+    opt_param = res["opt_param"]
+    del res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    diag, wall, launches = timed_run(lambda: vt.vi_diagnostics(
+        opt_param, objective=objective, generator=torch.Generator(DEVICE).manual_seed(47)))
+    path_launches["standardize_vi_diagnostics"] = launches
+    khat = float(diag["khat"])
+    log(f"[standardize] vi_diagnostics khat={khat:.4f} "
+        f"branch={'ksd' if 'ksd' in diag else 'error_bounds'} wall_s={wall:.3f} "
+        f"launches={launches} max_memory_allocated_bytes={torch.cuda.max_memory_allocated()}")
+    if not torch.isfinite(diag["smoothed_log_weights"]).all():
+        raise AssertionError("[standardize] non-finite smoothed log weights")
+    if "ksd" in diag:
+        log(f"[standardize] ksd={float(diag['ksd']):.6g} p_value={diag['ksd_p_value']} "
+            f"valid={diag['ksd_valid']}")
+    else:
+        check_bounds(diag, "standardize")
+    if launches["vmem_solve_triangular"] < 1:
+        raise AssertionError("[standardize] vi_diagnostics never ran the triangular solve")
+    del diag
+    torch.cuda.empty_cache()
+
+
+def phase_qmc(path_launches):
+    """STL ExclusiveKL on FullRankGaussian(1000) over the flagship model, S =
+    10, 300 steps under each base sampler (pseudo-random, SobolNormal(),
+    SobolNormal(owen=True)); kernel 2 once a step. Then the gradient
+    variance of Sobol over pseudo-MC for the FullRankGaussian STL estimator
+    at d = 20, S = 64 over 200 generators (docs/benchmarks.md:394-403), in
+    float64."""
+    import viabel_torch as vt
+    from viabel_torch.models import zoo
+    d, model = FLAGSHIP_DIM, flagship_model()
+    for seed, (name, sampler) in enumerate((("pseudo", None), ("sobol", vt.SobolNormal()),
+                                            ("sobol_owen", vt.SobolNormal(owen=True)))):
+        if sampler is not None:
+            # the lattice is built once on the host (scipy) and cached; the
+            # first draw also loads the scramble's CUDA kernels
+            start = time.perf_counter()
+            sampler.normal(torch.Generator(DEVICE), 10, d, torch.float32, DEVICE)
+            torch.cuda.synchronize()
+            log(f"[qmc] [{name}] base block (10, {d}) built and first draw in "
+                f"{time.perf_counter() - start:.3f} s")
+        approx = vt.FullRankGaussian(d, base_sampler=sampler, device=DEVICE,
+                                     dtype=torch.float32)
+        objective = vt.ExclusiveKL(approx, model, 10, use_path_deriv=True)
+        gen = torch.Generator(DEVICE).manual_seed(50 + seed)
+        res, wall, launches = timed_run(lambda: vt.RMSProp(FLAGSHIP_LR).optimize(
+            QMC_ITERS, objective, approx.init_param(), generator=gen))
+        steps = report_run(f"[qmc] [{name}]", res, wall, launches)
+        path_launches[f"qmc_{name}"] = launches
+        if launches["stl_transpose_solve"] != steps:
+            raise AssertionError(f"[qmc] [{name}] launches {launches} in {steps} steps")
+    dv = QMC_VAR_DIM
+    rng = np.random.default_rng(0)
+    target, _ = zoo.diagonal_gaussian(rng.normal(size=dv), np.exp(0.3 * rng.normal(size=dv)),
+                                      device=DEVICE, dtype=torch.float64)
+    variances = {}
+    for name, sampler in (("pseudo", None), ("sobol", vt.SobolNormal())):
+        approx = vt.FullRankGaussian(dv, base_sampler=sampler, device=DEVICE,
+                                     dtype=torch.float64)
+        objective = vt.ExclusiveKL(approx, target, QMC_VAR_S, use_path_deriv=True)
+        vp = approx.init_param() + 0.05
+        grads = torch.stack([objective.value_and_grad(
+            vp, torch.Generator(DEVICE).manual_seed(i))[1] for i in range(QMC_VAR_REPS)])
+        variances[name] = float(torch.mean(torch.var(grads, dim=0)))
+    ratio = variances["sobol"] / variances["pseudo"]
+    log(f"[qmc] gradient variance d={dv} S={QMC_VAR_S} reps={QMC_VAR_REPS}: "
+        f"pseudo={variances['pseudo']:.6g} sobol={variances['sobol']:.6g} "
+        f"ratio={ratio:.6f}")
+    if not ratio < 0.5:
+        raise AssertionError(f"[qmc] Sobol over pseudo-MC gradient variance {ratio}")
+
+
+def subsampled_logistic():
+    """Logistic regression at d = 1000 over 100,000 rows, as the zoo builds
+    it (rows randn / sqrt(d), labels from a true beta), from numpy seed 0;
+    X is 400 MB in float32 on the device."""
+    import viabel_torch as vt
+    d, n = FLAGSHIP_DIM, SUB_N_DATA
+    rng = np.random.RandomState(0)
+    X = (rng.randn(n, d) / np.sqrt(d)).astype(np.float32)
+    beta_true = rng.randn(d).astype(np.float32)
+    y = (rng.rand(n) < 1.0 / (1.0 + np.exp(-(X @ beta_true)))).astype(np.float32)
+    data = (torch.as_tensor(X, device=DEVICE), torch.as_tensor(y, device=DEVICE))
+
+    def log_prior(beta):
+        return torch.sum(-0.5 * beta**2 - 0.5 * math.log(2.0 * math.pi), dim=-1)
+
+    def log_likelihood(beta, batch):
+        Xb, yb = batch
+        logits = beta @ Xb.T
+        return torch.sum(yb * logits - torch.nn.functional.softplus(logits), dim=-1)
+
+    return vt.SubsampledModel(log_prior, log_likelihood, data, SUB_BATCH)
+
+
+def full_data_elbo(model, approx, var_param, n=100, seed=49):
+    """The full-data ELBO of q at ``var_param`` by ``n`` draws (entropy in
+    closed form)."""
+    with torch.no_grad():
+        x = approx.sample(var_param, n, torch.Generator(DEVICE).manual_seed(seed))
+        return float(torch.mean(model.full_data_log_density(x)) + approx.entropy(var_param))
+
+
+def phase_subsampled(path_launches):
+    """Minibatch VI at dataset scale: STL ExclusiveKL on FullRankGaussian(1000)
+    over a SubsampledModel of 100,000 rows, 512 a step, S = 10, 500 RMSProp
+    steps (kernel 2 once a step); the full-data ELBO before and after; and
+    IWELBO refusing the model."""
+    import viabel_torch as vt
+    model = subsampled_logistic()
+    approx = vt.FullRankGaussian(FLAGSHIP_DIM, device=DEVICE, dtype=torch.float32)
+    objective = vt.ExclusiveKL(approx, model, 10, use_path_deriv=True)
+    init = approx.init_param()
+    before = full_data_elbo(model, approx, init)
+    gen = torch.Generator(DEVICE).manual_seed(48)
+    res, wall, launches = timed_run(lambda: vt.RMSProp(FLAGSHIP_LR).optimize(
+        SUB_ITERS, objective, init, generator=gen))
+    steps = report_run("[subsampled]", res, wall, launches)
+    path_launches["subsampled"] = launches
+    after = full_data_elbo(model, approx, res["opt_param"])
+    log(f"[subsampled] n_data={model.n_data} batch_size={model.batch_size} "
+        f"full_data_elbo start={before:.3f} end={after:.3f}")
+    if launches["stl_transpose_solve"] != steps:
+        raise AssertionError(f"[subsampled] launches {launches} in {steps} steps")
+    if not after > before:
+        raise AssertionError(f"[subsampled] the full-data ELBO did not rise: {before} -> "
+                             f"{after}")
+    try:
+        vt.IWELBO(approx, model, 10)
+    except ValueError as exc:
+        log(f"[subsampled] IWELBO refuses the model: {exc}")
+    else:
+        raise AssertionError("[subsampled] IWELBO accepted a subsampled model")
+    del model, objective, res
+    torch.cuda.empty_cache()
+
+
+def phase_pathfinder(path_launches):
+    """Single-path pathfinder and pathfinder_init onto FullRankGaussian(1000)
+    on the flagship model (L = 60, J = 6), timed by CUDA events; then
+    bbvi(init_method="pathfinder") on the displaced-mode target of
+    benchmarks/pathfinder_flagship.py:157-158 with that script's bbvi
+    settings (kernel 1 in the FASO checks)."""
+    import viabel_torch as vt
+    from viabel_torch.models import zoo
+    d, model = FLAGSHIP_DIM, flagship_model()
+    family = vt.FullRankGaussian(d, device=DEVICE, dtype=torch.float32)
+    x0 = 2.0 * torch.randn(d, generator=torch.Generator(DEVICE).manual_seed(7), device=DEVICE)
+    gen = torch.Generator(DEVICE).manual_seed(51)
+    pf = dict(max_iters=PF_ITERS, history=PF_HISTORY)
+    res = vt.pathfinder(model, x0, gen, **pf)
+    best = int(res["best_l"])
+    log(f"[pathfinder] single path: best_l={best} elbo[best]={float(res['elbo'][best]):.4f} "
+        f"path_logp first={float(res['path_logps'][0]):.4f} "
+        f"last={float(res['path_logps'][-1]):.4f}")
+    if not (torch.isfinite(res["samples"]).all() and math.isfinite(float(res["elbo"][best]))):
+        raise AssertionError("[pathfinder] non-finite draws or best ELBO")
+    if not float(res["path_logps"][-1]) > float(res["path_logps"][0]):
+        raise AssertionError("[pathfinder] the L-BFGS path did not ascend")
+    path_ms = cuda_ms(lambda: vt.pathfinder(model, x0, gen, **pf), reps=5, warmup=1)
+    init = vt.pathfinder_init(family, model, gen, **pf)
+    if init.shape != (d + d * d,) or not torch.isfinite(init).all():
+        raise AssertionError("[pathfinder] pathfinder_init is not a finite parameter")
+    init_ms = cuda_ms(lambda: vt.pathfinder_init(family, model, gen, **pf), reps=5, warmup=1)
+    log(f"[pathfinder] d={d} L={PF_ITERS} J={PF_HISTORY}: pathfinder_ms={path_ms:.3f} "
+        f"pathfinder_init_ms={init_ms:.3f}")
+    rng = np.random.RandomState(0)
+    mean = 30.0 * rng.randn(d)
+    displaced, _ = zoo.diagonal_gaussian(mean, np.ones(d), device=DEVICE,
+                                         dtype=torch.float32)
+    approx = vt.FullRankGaussian(d, device=DEVICE, dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, launches = timed_run(lambda: vt.bbvi(
+        d, log_density=displaced, approx=approx, fixed_lr=True, n_iters=STD_ITERS,
+        num_mc_samples=STD_S, learning_rate=STD_LR, init_method="pathfinder",
+        RMS_kwargs=dict(diagnostics=False), FASO_kwargs=STD_FASO,
+        generator=torch.Generator(DEVICE).manual_seed(52)))
+    path_launches["pathfinder_bbvi"] = launches
+    mu, _ = approx.mean_and_cov(res["opt_param"])
+    mu_err = float(torch.max(torch.abs(mu.double().cpu() - torch.as_tensor(mean))))
+    log(f"[pathfinder] bbvi displaced target: k_conv={res['k_conv']} "
+        f"k_stopped={res['k_stopped']} wall_s={wall:.3f} "
+        f"steps={int(res['value_history'].shape[0])} max_abs_mean_err={mu_err:.6f} "
+        f"launches={launches} max_memory_allocated_bytes={torch.cuda.max_memory_allocated()}")
+    if res["k_conv"] is None:
+        raise AssertionError("[pathfinder] bbvi from the Pathfinder init never converged")
+    if not mu_err < 0.1:
+        raise AssertionError(f"[pathfinder] the fitted mean is {mu_err} off the mode")
+    if launches["ring_group_stats"] <= 0:
+        raise AssertionError("[pathfinder] the FASO checks never ran ring_group_stats")
+    del res
+    torch.cuda.empty_cache()
+
+
+def phase_extras_f64():
+    """The new modules at width in float64, card against CPU: every bijector
+    at block width 1000 (CorrCholesky at K = 30), fold_affine on each
+    location-scale family at d = 1000, the shift and Owen scrambles bit for
+    bit, and a 10-iteration L-BFGS path at d = 1000."""
+    import viabel_torch as vt
+    from viabel_torch import transforms as tr
+    from viabel_torch.pathfinder import _lbfgs_path
+    d = FLAGSHIP_DIM
+    gen = torch.Generator().manual_seed(53)
+    f64 = dict(dtype=torch.float64)
+    loc, scale = torch.randn(d, generator=gen, **f64), torch.exp(torch.randn(d, generator=gen,
+                                                                             **f64))
+    # The simplex and correlation-Cholesky inverses read the remaining
+    # stick as 1 - cumsum(...), the JAX package's formula, which loses about
+    # eps / (smallest remaining stick) to cancellation: their inverses are
+    # held to the limit times 1 / that stick. The CPCs of an LKJ(1)
+    # correlation matrix at K = 30 have sd 0.13-0.58, so CorrCholesky's
+    # inputs are 0.3 N(0, 1); at unit scale its smallest stick is near
+    # 1e-15 (logged, not held to a limit).
+    bijectors = [("identity", tr.identity(), d, 1.0),
+                 ("affine", tr.affine(loc, scale), d, 1.0),
+                 ("positive", tr.positive(), d, 1.0), ("upper", tr.upper_bound(1.5), d, 1.0),
+                 ("interval", tr.interval(-1.0, 3.0), d, 1.0),
+                 ("simplex", tr.simplex(), d - 1, 1.0), ("ordered", tr.ordered(), d, 1.0),
+                 ("corr_cholesky", tr.corr_cholesky(30), 435, 0.3),
+                 ("corr_cholesky", tr.corr_cholesky(30), 435, 1.0)]
+    worst = 0.0
+    for name, bij, m, x_scale in bijectors:
+        x = x_scale * torch.randn((8, m), generator=gen, **f64)
+        y = bij.forward(x)
+        stick = 1.0
+        if name == "simplex":
+            stick = float(torch.min(torch.flip(torch.cumsum(torch.flip(y, [-1]), -1), [-1])))
+        elif name == "corr_cholesky":
+            # a row's last remaining stick is its squared diagonal entry
+            stick = float(torch.min(torch.diagonal(y.reshape(8, 30, 30), dim1=-2,
+                                                   dim2=-1) ** 2))
+        inverse_err = max_rel_err(bij.inverse(y.to(DEVICE)), bij.inverse(y))
+        errs = [max_rel_err(bij.forward(x.to(DEVICE)), y),
+                max_rel_err(bij.forward_log_det_jacobian(x.to(DEVICE)),
+                            bij.forward_log_det_jacobian(x)),
+                inverse_err * stick]
+        held = name != "corr_cholesky" or x_scale < 1.0
+        log(f"[extras_f64] {name} ({m} -> {y.shape[-1]}, inputs {x_scale} N(0, 1)): "
+            f"forward / fldj / inverse maxnorm_rel_err={errs[0]:.3e} / {errs[1]:.3e} / "
+            f"{inverse_err:.3e}, smallest_stick={stick:.3e}, inverse x stick={errs[2]:.3e}"
+            + ("" if held else " (not held to the limit)"))
+        worst = max(worst, *errs) if held else worst
+    families = [("mf_gaussian", lambda **kw: vt.MFGaussian(d, **kw)),
+                ("mf_student_t", lambda **kw: vt.MFStudentT(d, 10, **kw)),
+                ("full_rank", lambda **kw: vt.FullRankGaussian(d, **kw)),
+                ("multivariate_t", lambda **kw: vt.MultivariateT(d, 10, **kw)),
+                ("lr_gaussian", lambda **kw: vt.LRGaussian(d, 10, **kw))]
+    for name, family in families:
+        cpu = family(device="cpu", **f64)
+        vp = cpu.init_param() + 0.1 * torch.randn(cpu.var_param_dim, generator=gen, **f64)
+        card = family(device=DEVICE, **f64)
+        err = max_rel_err(card.fold_affine(vp.to(DEVICE), loc.to(DEVICE), scale.to(DEVICE)),
+                          cpu.fold_affine(vp, loc, scale))
+        log(f"[extras_f64] fold_affine {name}: maxnorm_rel_err={err:.3e}")
+        worst = max(worst, err)
+    if not worst <= EXTRAS_RTOL:
+        raise AssertionError(f"[extras_f64] card against CPU off by {worst}")
+    for owen in (False, True):
+        sampler = vt.SobolNormal(owen=owen)
+        seeds = torch.randint(0, 2**32, (d,), generator=gen, dtype=torch.int64)
+        bits_card = sampler.scrambled_bits(256, d, seeds.to(DEVICE)).cpu()
+        bits_cpu = sampler.scrambled_bits(256, d, seeds)
+        z_err = max_rel_err(sampler.normal_from_seeds(256, d, seeds.to(DEVICE), torch.float64),
+                            sampler.normal_from_seeds(256, d, seeds, torch.float64))
+        log(f"[extras_f64] {'owen' if owen else 'shift'} scramble (256, {d}): "
+            f"bits_equal={torch.equal(bits_card, bits_cpu)} normal maxnorm_rel_err={z_err:.3e}")
+        if not torch.equal(bits_card, bits_cpu) or not z_err <= EXTRAS_RTOL:
+            raise AssertionError("[extras_f64] the scramble differs on the card")
+    x0 = 2.0 * torch.randn((1, d), generator=gen, **f64)
+    paths = {device: _lbfgs_path(flagship_model(device=device, dtype=torch.float64),
+                                 x0.to(device), PF_PATH_ITERS, PF_HISTORY, 1.0)
+             for device in (DEVICE, "cpu")}
+    xs_err = max_rel_err(paths[DEVICE][0], paths["cpu"][0])
+    lp_err = max_rel_err(paths[DEVICE][2], paths["cpu"][2])
+    log(f"[extras_f64] L-BFGS path d={d} L={PF_PATH_ITERS}: xs maxnorm_rel_err={xs_err:.3e} "
+        f"logps maxnorm_rel_err={lp_err:.3e} valid_equal="
+        f"{torch.equal(paths[DEVICE][4].cpu(), paths['cpu'][4])}")
+    if not (xs_err <= PF_PATH_RTOL and lp_err <= PF_PATH_RTOL):
+        raise AssertionError(f"[extras_f64] L-BFGS path off by {xs_err}, {lp_err}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -1004,10 +1373,21 @@ def main():
     phase_dis()
     phase_resume()
     phase_flows()
+    path_launches = {"main": {k: v for k, v in counts.items()}}
+    phase_standardize(path_launches)
+    phase_qmc(path_launches)
+    phase_subsampled(path_launches)
+    phase_pathfinder(path_launches)
+    phase_extras_f64()
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
+        # the main path's launches and those of this slice's paths, each
+        # read just after its own run
+        by_path = {path: launches[name] for path, launches in path_launches.items()
+                   if launches.get(name)}
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": counts[name]}
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path}
         entry.update(results[name])
         kernels.append(entry)
     if not all(math.isfinite(k["ms"]) and math.isfinite(k["bound_ms"]) for k in kernels):

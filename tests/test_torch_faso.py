@@ -344,9 +344,14 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("kwargs", [dict(num_restarts=2), dict(standardize=True),
-                                    dict(init_method="pathfinder")])
+@pytest.mark.parametrize("kwargs", [
+    dict(num_restarts=2), dict(standardize=True, num_restarts=2),
+    dict(init_method="pathfinder", num_restarts=2),
+    dict(init_var_params=torch.zeros((2, 4), dtype=torch.float64))])
 def test_deferred_routes_raise_with_a_roadmap_pointer(kwargs):
+    """The multistart routes (item 13): the restarts alone, with the pilot
+    standardization, with one Pathfinder path a restart, and as a stack of
+    inits."""
     model, dim = vt.zoo.funnel()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         vt.bbvi(dim, log_density=model, n_iters=5, device="cpu", **kwargs)

@@ -8,36 +8,45 @@ parametric families (MFGaussian, MFStudentT, FullRankGaussian,
 MultivariateT, LRGaussian) and the neural ones (NeuralNet, NVPFlow), the
 ExclusiveKL (with its control variates), IWELBO, AlphaDivergence and
 DISInclusiveKL objectives, every step rule, FASO and RAABBVI resume and
-wall-clock budgets with the ``.npz`` checkpoint, and the
+wall-clock budgets with the ``.npz`` checkpoint, the tempered and
+subsampled models, constrained-parameter transforms, randomized
+quasi-Monte Carlo base samplers, Pathfinder, ``bbvi``'s pilot
+standardization and Pathfinder initialization, and the
 ``vi_diagnostics`` front door (PSIS, the error bounds, the KSD test).
 Kernels live in :mod:`viabel_torch.ops`. Every entry point runs on the
 CUDA card unless the caller passes ``device="cpu"``.
 """
 
 from . import (checkpoint, convert, diagnostics, distributions, families, hmc,
-               mc_diagnostics, objectives, ops, optimizers, psis)
-from .convenience import bbvi, vi_diagnostics
+               mc_diagnostics, objectives, ops, optimizers, psis, qmc, transforms)
+from .convenience import bbvi, pilot_standardize, vi_diagnostics
 from .distributions import multivariate_normal_logpdf, multivariate_t_logpdf
 from .faso import FASO, RAABBVI
 from .families import (ApproximationFamily, FullRankGaussian, LRGaussian, MFGaussian,
                        MFStudentT, MultivariateT, NeuralNet, NVPFlow)
-from .models import Model, zoo
+from .models import Model, SubsampledModel, TemperedModel, zoo
 from .objectives import (AlphaDivergence, DISInclusiveKL, ExclusiveKL, IWELBO,
                          StochasticVariationalObjective, VariationalObjective)
 from .optimizers import (Adagrad, Adam, AveragedAdam, AveragedRMSProp, Optimizer,
                          RMSProp, StochasticGradientOptimizer, WindowedAdagrad)
+from .pathfinder import multipath_pathfinder, pathfinder, pathfinder_init
+from .qmc import AntitheticNormal, SobolNormal
+from .transforms import ParamSpec, TransformedModel
 
 __version__ = "0.1.0"
 
 __all__ = [
     "ApproximationFamily", "MFGaussian", "MFStudentT", "FullRankGaussian",
     "MultivariateT", "LRGaussian", "NeuralNet", "NVPFlow",
-    "Model", "zoo",
+    "Model", "SubsampledModel", "TemperedModel", "zoo",
     "VariationalObjective", "StochasticVariationalObjective", "ExclusiveKL",
     "IWELBO", "AlphaDivergence", "DISInclusiveKL",
     "Optimizer", "StochasticGradientOptimizer", "RMSProp", "AveragedRMSProp",
     "Adam", "AveragedAdam", "Adagrad", "WindowedAdagrad",
-    "FASO", "RAABBVI", "bbvi", "vi_diagnostics",
+    "FASO", "RAABBVI", "bbvi", "vi_diagnostics", "pilot_standardize",
+    "pathfinder", "multipath_pathfinder", "pathfinder_init",
+    "ParamSpec", "TransformedModel", "transforms",
+    "SobolNormal", "AntitheticNormal", "qmc",
     "multivariate_normal_logpdf", "multivariate_t_logpdf",
     "checkpoint", "convert", "diagnostics", "distributions", "hmc",
     "mc_diagnostics", "ops", "psis",

@@ -5,8 +5,11 @@ Same wiring as the JAX package: default MFGaussian family, ExclusiveKL
 objective, RMSProp base optimizer, RAABBVI unless ``fixed_lr``, with
 ``mc_escalation=4.0`` armed on the adaptive paths; ``vi_diagnostics``
 runs PSIS, then the error bounds or, past the k-hat gate, the calibrated
-KSD test. A ``torch.Generator`` replaces the PRNG key. The multistart,
-standardize and Pathfinder routes are not ported yet (ROADMAP.md).
+KSD test. A ``torch.Generator`` replaces the PRNG key. ``bbvi`` also
+takes the two data-driven front routes, ``standardize=True`` (a
+mean-field pilot, :func:`pilot_standardize`) and
+``init_method="pathfinder"``; the multistart route is not ported yet
+(ROADMAP.md).
 """
 
 import math
@@ -22,14 +25,66 @@ from .optimizers import RMSProp, default_generator
 from .psis import psislw
 from .utils import not_ported
 
-__all__ = ["bbvi", "vi_diagnostics", "psis_correction", "samples_and_log_weights"]
+__all__ = ["bbvi", "vi_diagnostics", "psis_correction", "samples_and_log_weights",
+           "pilot_standardize"]
+
+
+def pilot_standardize(dimension, log_density, *, n_iters=8000,
+                      num_mc_samples=40, learning_rate=0.02, generator=None,
+                      name="x", RMS_kwargs=None, device="cuda", dtype=None):
+    """Mean-field pilot standardization for scale-heterogeneous targets.
+
+    Fits a fixed-budget mean-field Gaussian (plain RMSProp, no convergence
+    detection) and wraps ``log_density`` in a
+    :class:`~viabel_torch.transforms.TransformedModel` with an
+    ``Affine(mu_pilot, sigma_pilot)`` bijector, so that a later BBVI run
+    optimizes in O(1)-scaled coordinates. On targets with strongly
+    heterogeneous scales, the large-scale rows of a full-rank factor have
+    ELBO curvature ~1/sd^2 and mix slowly under a normalized optimizer;
+    the log-sigma parameterization is self-standardizing, so a cheap pilot
+    recovers the marginal scales. (A Pathfinder sketch does not replace
+    it: its rank-2J plus diagonal covariance leaves scales at 0.2-2x.)
+
+    Returns ``(std_model, spec, pilot_results)``: optimize against
+    ``std_model``, then map draws or optima back to the original space
+    with ``spec.constrain(...)[name]``. The pilot family lives on
+    ``device`` in ``dtype``; ``generator`` (default: seed 0 there) drives
+    its draws.
+
+    Departure from the JAX package, which folds whatever the pilot
+    returns: a pilot whose location or scale is non-finite, or whose scale
+    is not positive, raises ``ValueError`` here before anything is built
+    on it.
+    """
+    from .transforms import ParamSpec, TransformedModel, affine
+
+    model = log_density if isinstance(log_density, Model) else Model(log_density)
+    RMS_kwargs = dict(RMS_kwargs or {})
+    RMS_kwargs.setdefault("diagnostics", False)
+    approx = MFGaussian(int(dimension), device=device, dtype=dtype)
+    if generator is None:
+        generator = default_generator(approx.device)
+    objective = ExclusiveKL(approx, model, int(num_mc_samples))
+    res = RMSProp(learning_rate, **RMS_kwargs).optimize(
+        int(n_iters), objective, approx.init_param(), generator=generator)
+    mu, log_sigma = approx.unpack(res["opt_param"])
+    scale = torch.exp(log_sigma)
+    if not bool(torch.all(torch.isfinite(mu) & torch.isfinite(scale) & (scale > 0))):
+        raise ValueError(
+            "the standardization pilot diverged: its location or scale is "
+            "non-finite or its scale is not positive; lower the pilot's "
+            "learning_rate or raise its num_mc_samples through pilot_kwargs")
+    spec = ParamSpec([(name, int(dimension), affine(mu, scale))])
+    std_model = TransformedModel(lambda p: model(p[name]), spec)
+    return std_model, spec, res
 
 
 def bbvi(dimension, *, n_iters=10000, num_mc_samples=10, log_density=None,
          approx=None, objective=None, fit=None, adaptive=True, fixed_lr=False,
          init_var_param=None, learning_rate=0.01, generator=None,
-         progress_callback=None, num_restarts=None, standardize=False,
-         init_method=None, RMS_kwargs=None, FASO_kwargs=None,
+         progress_callback=None, num_restarts=None, init_var_params=None,
+         standardize=False, pilot_kwargs=None, init_method=None,
+         pathfinder_kwargs=None, RMS_kwargs=None, FASO_kwargs=None,
          RAABBVI_kwargs=None, device="cuda", dtype=None):
     """Fit a model using black-box variational inference
     (reference convenience.py:14-94).
@@ -48,13 +103,36 @@ def bbvi(dimension, *, n_iters=10000, num_mc_samples=10, log_density=None,
     reference; at d=1000 full-rank they cost 8 MB per step, so pass
     ``RMS_kwargs=dict(diagnostics=False)`` unless you need them (this also
     turns on the pipelined R-hat verdicts).
+
+    Data-driven initialization: ``init_method="pathfinder"`` runs
+    :func:`viabel_torch.pathfinder.pathfinder_init` on the model and
+    starts from the ELBO-best quasi-Newton Gaussian moment-matched onto
+    the family (tune with ``pathfinder_kwargs``, e.g. ``dict(n_paths=4,
+    max_iters=40)``).
+
+    Standardization: ``standardize=True`` runs the :func:`pilot_standardize`
+    mean-field pilot (tune with ``pilot_kwargs``), optimizes against the
+    pilot-standardized target, and folds the affine back into the
+    family's parameters in closed form (``fold_affine``), so the returned
+    ``opt_param`` and the results' ``objective`` live in the user's
+    coordinates. The family needs ``fold_affine`` (every location-scale
+    family has it; NeuralNet and NVPFlow do not). An explicit
+    ``init_var_param`` is read in the user's coordinates and unfolded for
+    the run. ``results["standardization"]`` holds ``affine=(p_mu,
+    p_scale)``, the ``spec`` and the ``pilot_results``. The per-step
+    histories stay in pilot coordinates: fold a parameter row back with
+    ``approx.fold_affine(row, *results["standardization"]["affine"])``.
+    The loss history needs no fold: the standardized model carries the
+    affine's log-Jacobian ``sum(log p_scale)`` in every log density, and
+    the folded q's entropy is larger by the same ``sum(log p_scale)``, so
+    each ``value_history`` entry is the user-space negative ELBO of the
+    folded iterate at the same draws. Only the model term alone, ``E_q
+    log p``, is offset by ``sum(log p_scale)`` between the two spaces.
     """
     if num_restarts is not None:
         raise not_ported("bbvi(num_restarts=...)", 13)
-    if standardize:
-        raise not_ported("bbvi(standardize=True)", 10)
-    if init_method is not None:
-        raise not_ported("bbvi(init_method=...)", 11)
+    if init_var_params is not None:
+        raise not_ported("bbvi(init_var_params=...)", 13)
     RMS_kwargs = dict(RMS_kwargs or {})
     FASO_kwargs = dict(FASO_kwargs or {})
     RAABBVI_kwargs = dict(RAABBVI_kwargs or {})
@@ -65,6 +143,7 @@ def bbvi(dimension, *, n_iters=10000, num_mc_samples=10, log_density=None,
                 "an objective already carries its model and family; drop the fit/"
                 "log_density/approx arguments")
         approx = objective.approx
+        model = objective.model
     else:
         if log_density is None:
             if fit is None:
@@ -81,6 +160,65 @@ def bbvi(dimension, *, n_iters=10000, num_mc_samples=10, log_density=None,
         objective = ExclusiveKL(approx, model, num_mc_samples)
     if generator is None:
         generator = default_generator(approx.device)
+    standardization = orig_model = None
+    if standardize:
+        try:
+            approx.fold_affine(approx.init_param(), 0.0, 1.0)
+        except NotImplementedError as exc:
+            raise ValueError(
+                "standardize=True needs a family with a closed-form affine "
+                f"pushforward; {type(approx).__name__} has none — run "
+                "pilot_standardize yourself and map draws back through "
+                "spec.constrain") from exc
+        std_model, spec, pilot_results = pilot_standardize(
+            approx.dim, model, generator=generator, device=approx.device,
+            dtype=approx.dtype, **dict(pilot_kwargs or {}))
+        p_mu, p_log_sigma = torch.split(pilot_results["opt_param"], approx.dim)
+        p_scale = torch.exp(p_log_sigma)
+        standardization = dict(affine=(p_mu, p_scale), spec=spec,
+                               pilot_results=pilot_results)
+        orig_model, model = model, std_model
+        objective.model = std_model
+        if init_var_param is not None:
+            # an explicit init arrives in the user's coordinates; the
+            # inverse affine is itself an affine
+            init_var_param = approx.fold_affine(init_var_param, -p_mu / p_scale,
+                                                1.0 / p_scale)
+    elif pilot_kwargs is not None:
+        raise ValueError("pilot_kwargs needs standardize=True")
+    try:
+        if init_method is not None:
+            if init_method != "pathfinder":
+                raise ValueError(f"unknown init_method {init_method!r}; the one "
+                                 "built-in data-driven initializer is 'pathfinder'")
+            if init_var_param is not None:
+                raise ValueError("init_method='pathfinder' computes the init; "
+                                 "drop init_var_param(s)")
+            from .pathfinder import pathfinder_init
+            init_var_param = pathfinder_init(approx, model, generator,
+                                             **dict(pathfinder_kwargs or {}))
+        elif pathfinder_kwargs is not None:
+            raise ValueError("pathfinder_kwargs needs init_method='pathfinder'")
+        opt_results = _bbvi_single(objective, approx, n_iters, init_var_param,
+                                   learning_rate, generator, adaptive, fixed_lr,
+                                   progress_callback, RMS_kwargs, FASO_kwargs,
+                                   RAABBVI_kwargs)
+    finally:
+        if standardization is not None:
+            # the results' objective diagnoses the user's target (a
+            # prebuilt objective is restored on an error as well)
+            objective.model = orig_model
+    if standardization is not None:
+        opt_results["opt_param"] = approx.fold_affine(opt_results["opt_param"],
+                                                      p_mu, p_scale)
+        opt_results["standardization"] = standardization
+    return opt_results
+
+
+def _bbvi_single(objective, approx, n_iters, init_var_param, learning_rate,
+                 generator, adaptive, fixed_lr, progress_callback, RMS_kwargs,
+                 FASO_kwargs, RAABBVI_kwargs):
+    """The single-run leg of :func:`bbvi`."""
     if init_var_param is None:
         init_var_param = approx.init_param()
     if not isinstance(learning_rate, (int, float)):

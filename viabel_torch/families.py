@@ -180,6 +180,35 @@ class ApproximationFamily:
     def _pth_moment(self, var_param, p):
         raise NotImplementedError()
 
+    def _broadcast_affine(self, loc, scale):
+        """``(loc, scale)`` as ``(dim,)`` tensors in the family's dtype and
+        on its device."""
+        def vec(v):
+            v = torch.as_tensor(v, dtype=self._dtype, device=self._device)
+            return torch.broadcast_to(v, (self.dim,))
+
+        return vec(loc), vec(scale)
+
+    def fold_affine(self, var_param, loc, scale):
+        """Parameters of the pushforward of ``q`` through ``x -> loc +
+        scale * x``.
+
+        For the location-scale families the elementwise affine map acts on
+        the variational parameters in closed form: if ``X ~ q(var_param)``
+        then ``loc + scale * X ~ q(fold_affine(var_param, loc, scale))``
+        exactly. This lets ``bbvi(standardize=True)`` optimize against a
+        pilot-standardized target and return ``opt_param`` in the user's
+        coordinates. ``scale`` must be positive; ``loc`` and ``scale`` may
+        be scalars or ``(dim,)`` vectors. The inverse map is
+        ``fold_affine(vp, -loc / scale, 1 / scale)``. Families without a
+        closed-form affine action (NeuralNet, NVPFlow) raise
+        ``NotImplementedError``.
+        """
+        raise NotImplementedError(
+            f"{type(self).__name__} has no closed-form affine pushforward; "
+            "optimize in the standardized space and map draws back with "
+            "spec.constrain instead")
+
 
 class _MeanFieldLocScale(ApproximationFamily):
     """The mean-field ``[mu, log_sigma]`` layout. Subclasses define
@@ -197,6 +226,13 @@ class _MeanFieldLocScale(ApproximationFamily):
     def init_param(self):
         # mu = 0, log_sigma = 2 (reference approximations.py:207-210)
         return torch.cat([self._zeros(self.dim), 2.0 + self._zeros(self.dim)])
+
+    def fold_affine(self, var_param, loc, scale):
+        """Exact affine pushforward: ``mu' = loc + scale * mu``,
+        ``log_sigma' = log_sigma + log scale``."""
+        loc, scale = self._broadcast_affine(loc, scale)
+        mu, log_sigma = self.unpack(var_param)
+        return torch.cat([loc + scale * mu, log_sigma + torch.log(scale)])
 
 
 class MFGaussian(_MeanFieldLocScale):
@@ -339,6 +375,26 @@ class _CholeskyFamily(ApproximationFamily):
         d = self.dim
         theta = var_param[d:].view(d, d)
         return var_param[:d], torch.diagonal(theta), cholesky_factor(theta)
+
+    def pack(self, mu, L):
+        """Inverse of :meth:`unpack`: ``L`` must be lower-triangular with a
+        positive diagonal."""
+        theta = torch.tril(L, -1) + torch.diag(torch.log(torch.diagonal(L)))
+        return torch.cat([mu, theta.reshape(-1)])
+
+    def fold_affine(self, var_param, loc, scale):
+        """Exact affine pushforward: ``mu' = loc + scale * mu``, ``L' =
+        diag(scale) @ L``: the stored ``theta`` gets ``log scale_r`` added on
+        the diagonal and row ``r`` of its strict lower triangle scaled by
+        ``scale_r``; the unused strict upper triangle is left as it is."""
+        loc, scale = self._broadcast_affine(loc, scale)
+        d = self.dim
+        theta = var_param[d:].view(d, d)
+        rows = torch.arange(d, device=theta.device)[:, None]
+        cols = torch.arange(d, device=theta.device)[None, :]
+        theta = torch.where(rows == cols, theta + torch.log(scale)[:, None],
+                            torch.where(cols < rows, theta * scale[:, None], theta))
+        return torch.cat([loc + scale * var_param[:d], theta.reshape(-1)])
 
     def _init_chol_param(self, init_log_diag):
         d = self.dim
@@ -601,6 +657,14 @@ class LRGaussian(ApproximationFamily):
         B = torch.randn(d * self._k, generator=generator, dtype=self._dtype,
                         device=self._device)
         return torch.cat([self._zeros(d), 1.0 + self._zeros(d), B])
+
+    def fold_affine(self, var_param, loc, scale):
+        """Exact affine pushforward: ``mu' = loc + scale * mu``,
+        ``log_sigma' = log_sigma + log scale``, ``B' = diag(scale) @ B``."""
+        loc, scale = self._broadcast_affine(loc, scale)
+        mu, log_sigma, B = self.unpack(var_param)
+        return torch.cat([loc + scale * mu, log_sigma + torch.log(scale),
+                          (scale[:, None] * B).reshape(-1)])
 
     def sample(self, var_param, n_samples, generator):
         mu, log_sigma, B = self.unpack(var_param)

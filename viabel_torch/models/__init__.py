@@ -1,4 +1,4 @@
 from . import zoo
-from .base import Model
+from .base import Model, SubsampledModel, TemperedModel
 
-__all__ = ["Model", "zoo"]
+__all__ = ["Model", "TemperedModel", "SubsampledModel", "zoo"]

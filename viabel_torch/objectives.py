@@ -23,6 +23,11 @@ grad, obj_state)``, and the optimizers thread it through their loops
 (``check_obj_state`` at segment boundaries, ``resize_obj_state`` when
 FASO's escalation changes the sample count). A stateless objective has
 the empty state ``{}``.
+
+A model that draws its own minibatch (``needs_generator``, e.g.
+:class:`~viabel_torch.models.SubsampledModel`) is bound once a step, before
+the family's draw (:func:`_step_model`), so every evaluation in the step
+sees one minibatch; the importance-weight objectives refuse such a model.
 """
 
 import math
@@ -36,12 +41,40 @@ __all__ = ["VariationalObjective", "StochasticVariationalObjective",
 _HESSIAN_METHODS = (None, "full", "mean_only", "loo_diag_approx", "loo_direct_approx")
 
 
+def _step_model(model, generator):
+    """The model for one objective step. A model that draws its own
+    randomness (``needs_generator``) draws it here, once, from the step's
+    generator, and the returned callable evaluates every sample batch of
+    the step on that draw (the JAX package splits the step key once for
+    the same purpose, objectives.py:55-69). Any other model is returned
+    as it is, and the generator's stream is left untouched."""
+    if getattr(model, "needs_generator", False):
+        return model.bind(generator)
+    return model
+
+
+def _reject_subsampled(model, objective_name):
+    """Importance-weight objectives need exact log densities: weights
+    ``exp(log p - log q)`` of a noisy (subsampled) model estimate are
+    biased (``E[exp(noisy)] != exp(E[noisy])``), unlike the ELBO, which is
+    linear in ``log p``."""
+    if getattr(model, "needs_generator", False):
+        raise ValueError(
+            f"{objective_name} requires an exact log density: importance "
+            "weights of a subsampled model estimate are biased — use "
+            "ExclusiveKL for SubsampledModel")
+
+
 class VariationalObjective:
     """A variational objective to minimize."""
 
     def __init__(self, approx, model):
+        self._check_model(model)
         self._approx = approx
         self._model = model
+
+    def _check_model(self, model):
+        """Refuse a model the estimator cannot use (a no-op here)."""
 
     def _loss(self, var_param, generator):
         raise NotImplementedError()
@@ -86,6 +119,13 @@ class VariationalObjective:
     @property
     def model(self):
         return self._model
+
+    @model.setter
+    def model(self, value):
+        # the objectives read the model at every step and cache nothing
+        # derived from it, so swapping it is all a rebind needs
+        self._check_model(value)
+        self._model = value
 
 
 class StochasticVariationalObjective(VariationalObjective):
@@ -146,7 +186,8 @@ class ExclusiveKL(StochasticVariationalObjective):
         super().__init__(approx, model, num_mc_samples)
 
     def _loss(self, var_param, generator, num_samples=None):
-        approx, model = self.approx, self.model
+        approx = self.approx
+        model = _step_model(self.model, generator)
         n = num_samples or self.num_mc_samples
         if self._use_path_deriv:
             samples, log_q = approx.sample_and_stl_log_density(var_param, n,
@@ -173,7 +214,8 @@ class ExclusiveKL(StochasticVariationalObjective):
         draws."""
         if self.hessian_approx_method is None:
             return super().value_and_grad(var_param, generator)
-        approx, model = self.approx, self.model
+        approx = self.approx
+        model = _step_model(self.model, generator)
         S = self.num_mc_samples
         var_param = var_param.detach()
         z_samples = approx.sample(var_param, S, generator)
@@ -271,6 +313,9 @@ class IWELBO(StochasticVariationalObjective):
         self._use_dreg = bool(use_dreg)
         super().__init__(approx, model, num_mc_samples)
 
+    def _check_model(self, model):
+        _reject_subsampled(model, "IWELBO")
+
     def _loss(self, var_param, generator, num_samples=None):
         approx, model = self.approx, self.model
         n = num_samples or self.num_mc_samples
@@ -305,6 +350,9 @@ class AlphaDivergence(StochasticVariationalObjective):
     def __init__(self, approx, model, num_mc_samples, alpha):
         self._alpha = float(alpha)
         super().__init__(approx, model, num_mc_samples)
+
+    def _check_model(self, model):
+        _reject_subsampled(model, "AlphaDivergence")
 
     @property
     def alpha(self):
@@ -362,8 +410,6 @@ class DISInclusiveKL(StochasticVariationalObjective):
     def __init__(self, approx, model, num_mc_samples, ess_target,
                  temper_prior, temper_prior_params, use_resampling=True,
                  num_resampling_batches=1, w_clip_threshold=10, resampler=None):
-        # no model of the port draws its own minibatch yet, so there is no
-        # subsampled model to refuse (ROADMAP.md, Queue 1 item 10)
         self._ess_target = float(ess_target)
         self._w_clip_threshold = float(w_clip_threshold)
         self._max_bisection_its = 50
@@ -377,6 +423,9 @@ class DISInclusiveKL(StochasticVariationalObjective):
         self._temper_prior_params = torch.as_tensor(
             temper_prior_params, dtype=temper_prior.dtype, device=temper_prior.device)
         super().__init__(approx, model, num_mc_samples)
+
+    def _check_model(self, model):
+        _reject_subsampled(model, "DISInclusiveKL")
 
     @property
     def num_mc_samples(self):
