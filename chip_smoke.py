@@ -11,7 +11,10 @@ the neural families (NVPFlow, a square NeuralNet); then bbvi's pilot
 standardization on a heteroscedastic target with vi_diagnostics in the
 user's space, the quasi-Monte Carlo base samplers, minibatch VI on a
 subsampled model, Pathfinder and bbvi's Pathfinder initialization, and the
-transforms, affine folds and scrambles in float64 against the CPU.
+transforms, affine folds and scrambles in float64 against the CPU; then the
+C++ model bridge against the zoo and under bbvi, bbvi's multistart route
+(lockstep RAABBVI over four restarts), and the multistart engines and
+restart selection in float64 against the CPU.
 
     python3 chip_smoke.py
 
@@ -71,6 +74,25 @@ PF_ITERS, PF_HISTORY = 60, 6             # [pathfinder]
 #: round-off over its iterations
 EXTRAS_RTOL, PF_PATH_RTOL, PF_PATH_ITERS = 1e-12, 1e-9, 10
 N_DIAG_SAMPLES = 100000  # vi_diagnostics' default n_samples
+#: [bridge]: the native models against the zoo (float64, absolute), then
+#: bbvi's FASO route on the native d = 1000 standard normal from a displaced
+#: init at the flagship's learning rate (at 0.01 the full-rank factor's
+#: normalized steps diverge at d = 1000), its final moments held to
+#: BRIDGE_MOMENT_LIMIT; the mean needs about 500 steps to come back, so after
+#: 1,000 steps the last check's window still held the approach (0.044 off)
+BRIDGE_TOL, BRIDGE_ITERS, BRIDGE_MOMENT_LIMIT = 1e-12, 2000, 0.05
+#: [multistart] and [multistart_f64]: at the flagship's learning rate the
+#: gates stall for thousands of steps (max R-hat 4.5-5 over the 1,001,000
+#: coordinates, a trend's ESS), so the detection here is set for every
+#: round to end at its first R-hat check, k = 75, read at once (no
+#: pipelining): the median coordinate's R-hat under 3 (a pure trend's is at
+#: most 2.65), its MCSE under 0.05 and its ESS over 1. 200 steps then hold
+#: exactly two rounds a restart (76 + 76 of the budget), the second ending
+#: in the round KL (kernel 3) and one host-side HMC regression a restart.
+MS_RESTARTS, MS_ITERS, MS_JITTER, MS_RATE_STEPS = 4, 200, 0.01, 100
+MS_DETECTION = dict(W_min=50, k_check=25, check_pipeline=0, rhat_threshold=3.0,
+                    rhat_quantile=0.5, mcse_threshold=0.05, ESS_min=1.0)
+MSF_RESTARTS, MSF_FASO_ITERS, MSF_OPT_ITERS = 3, 150, 100
 #: NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, and FLOP/s outside the
 #: tensor cores by element type
 PEAK_BYTES_PER_S = 3.35e12
@@ -277,7 +299,7 @@ def phase_main_path(counts):
     for name in ("ring_group_stats", "stl_transpose_solve"):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
-    return res, objective
+    return res, objective, steps / wall
 
 
 def triangle(d, lower, gen, dtype):
@@ -1333,6 +1355,236 @@ def phase_extras_f64():
         raise AssertionError(f"[extras_f64] L-BFGS path off by {xs_err}, {lp_err}")
 
 
+def phase_bridge(path_launches):
+    """The C++ model bridge: the native library's build, the native
+    robust regression and funnel against the zoo on a CUDA float64 input
+    (log density and gradient), then bbvi's FASO route through
+    CModel("std_normal", dim=1000) on a float32 FullRankGaussian with STL
+    from a displaced init (kernel 2 once a step, kernel 1 in the checks;
+    the model's host round trip each forward and backward)."""
+    import viabel_torch as vt
+    from viabel_torch.external import CModel, build_native_library
+    from viabel_torch.models import zoo
+    start = time.perf_counter()
+    path = build_native_library()
+    log(f"[bridge] native library {path} build_or_load_seconds="
+        f"{time.perf_counter() - start:.3f}")
+    if "build/viabel_torch" not in path:
+        raise AssertionError(f"[bridge] the library is not in the port's build directory: {path}")
+    x = torch.randn((1000, 2), generator=torch.Generator(DEVICE).manual_seed(60),
+                    device=DEVICE, dtype=torch.float64)
+    for name, (ref, _) in (("robust_regression", zoo.robust_regression(
+            device=DEVICE, dtype=torch.float64)), ("funnel", zoo.funnel())):
+        xs = [x.clone().requires_grad_(True) for _ in range(2)]
+        native, plain = CModel(name)(xs[0]), ref(xs[1])
+        g_native = torch.autograd.grad(native.sum(), xs[0])[0]
+        g_plain = torch.autograd.grad(plain.sum(), xs[1])[0]
+        lp_err = float((native - plain).detach().abs().max())
+        g_err = float((g_native - g_plain).abs().max())
+        log(f"[bridge] {name} (1000, 2) f64 on {native.device}: log density "
+            f"max_abs_err={lp_err:.3e} gradient max_abs_err={g_err:.3e}")
+        if native.device != x.device or g_native.device != x.device:
+            raise AssertionError(f"[bridge] {name}: the result left the input's device")
+        if not (lp_err <= BRIDGE_TOL and g_err <= BRIDGE_TOL):
+            raise AssertionError(f"[bridge] {name}: native against zoo off by {lp_err}, {g_err}")
+    d = FLAGSHIP_DIM
+    approx = vt.FullRankGaussian(d, device=DEVICE, dtype=torch.float32)
+    objective = vt.ExclusiveKL(approx, CModel("std_normal", dim=d), 10, use_path_deriv=True)
+    displaced = approx.init_param()
+    displaced[:d] = 0.5            # mean 0.5, sd exp(0.3) in every coordinate
+    displaced[d:].view(d, d).diagonal().fill_(0.3)
+    res, wall, launches = timed_run(lambda: vt.bbvi(
+        d, objective=objective, fixed_lr=True, n_iters=BRIDGE_ITERS,
+        learning_rate=FLAGSHIP_LR, init_var_param=displaced,
+        RMS_kwargs=dict(diagnostics=False), FASO_kwargs=dict(max_history=600),
+        generator=torch.Generator(DEVICE).manual_seed(61)))
+    path_launches["bridge"] = launches
+    steps = report_run("[bridge] bbvi std_normal(1000)", res, wall, launches, k=100)
+    mean, cov = approx.mean_and_cov(res["opt_param"])
+    mean_err = float(mean.abs().max())
+    sd_err = float((torch.sqrt(torch.diagonal(cov)) - 1.0).abs().max())
+    log(f"[bridge] k_conv={res['k_conv']} k_stopped={res['k_stopped']} "
+        f"max_abs_mean={mean_err:.6f} max_abs_sd_minus_1={sd_err:.6f} "
+        f"(limit {BRIDGE_MOMENT_LIMIT}) stl_launches_per_step="
+        f"{launches['stl_transpose_solve'] / steps:.3f}")
+    if launches["stl_transpose_solve"] != steps:
+        raise AssertionError(f"[bridge] {launches['stl_transpose_solve']} STL solves "
+                             f"in {steps} steps")
+    if launches["ring_group_stats"] <= 0:
+        raise AssertionError("[bridge] the FASO checks never ran ring_group_stats")
+    if not (mean_err <= BRIDGE_MOMENT_LIMIT and sd_err <= BRIDGE_MOMENT_LIMIT):
+        raise AssertionError(f"[bridge] moments off: mean {mean_err}, sd {sd_err}")
+    del res, objective
+    torch.cuda.empty_cache()
+
+
+def phase_multistart(path_launches, main_steps_per_s):
+    """bbvi(num_restarts=4) on the [main] configuration (FullRankGaussian(1000)
+    STL on the flagship model, S = 10, lr 0.001, a 600-row ring a restart)
+    on the default adaptive route, lockstep multistart_raabbvi: every
+    lockstep step is four STL steps (kernel 2), every check reads four
+    rings (kernel 1), and from the second round on each restart's round
+    boundary takes the symmetrized KL (kernel 3, four solves)."""
+    import viabel_torch as vt
+    from viabel_torch.parallel import multistart_optimize
+    d = FLAGSHIP_DIM
+    approx = vt.FullRankGaussian(d, device=DEVICE, dtype=torch.float32)
+    objective = vt.ExclusiveKL(approx, flagship_model(), 10, use_path_deriv=True)
+    settings = dict(max_history=600, **MS_DETECTION)
+    log(f"[multistart] restarts={MS_RESTARTS} n_iters={MS_ITERS} init_jitter={MS_JITTER} "
+        f"lr={FLAGSHIP_LR} RAABBVI_kwargs={settings} (iters0 1000, rho 0.5)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, launches = timed_run(lambda: vt.bbvi(
+        d, objective=objective, n_iters=MS_ITERS, learning_rate=FLAGSHIP_LR,
+        num_restarts=MS_RESTARTS, init_jitter=MS_JITTER, RAABBVI_kwargs=settings,
+        generator=torch.Generator(DEVICE).manual_seed(62)))
+    path_launches["multistart"] = launches
+    steps = res["k_global_steps"]
+    boundaries = sum(len(h) for h in res["SKL_history"])
+    rate = steps / wall
+    log(f"[multistart] k_stopped_final={res['k_stopped_final']} n_rounds={res['n_rounds']} "
+        f"k_global_steps={steps} k_total={res['k_total']} "
+        f"conv_iters={res['conv_iters_hist']} lr_hist={res['learning_rate_hist']}")
+    log(f"[multistart] wall_s={wall:.3f} (checks, HMC regressions and the selection "
+        f"included) lockstep_steps_per_s={rate:.2f} main_single_run_steps_per_s="
+        f"{main_steps_per_s:.2f} max_memory_allocated_bytes="
+        f"{torch.cuda.max_memory_allocated()}")
+    log(f"[multistart] best_restart={res['best_restart']} restart_elbos="
+        f"{[round(float(v), 4) for v in res['restart_elbos']]} "
+        f"skl_boundaries={boundaries} launches={launches}")
+    if not torch.isfinite(res["opt_params"]).all():
+        raise AssertionError("[multistart] a restart's optimum is not finite")
+    if not all(len(h) >= 1 for h in res["learning_rate_hist"]) or boundaries < MS_RESTARTS:
+        raise AssertionError(f"[multistart] a restart did not complete two rounds: "
+                             f"{res['learning_rate_hist']}, {boundaries} KL boundaries")
+    if launches["stl_transpose_solve"] != MS_RESTARTS * steps:
+        raise AssertionError(f"[multistart] {launches['stl_transpose_solve']} STL solves in "
+                             f"{steps} lockstep steps of {MS_RESTARTS} restarts")
+    if launches["ring_group_stats"] < MS_RESTARTS * res["n_rounds"]:
+        raise AssertionError(f"[multistart] {launches['ring_group_stats']} ring passes in "
+                             f"{res['n_rounds']} rounds of {MS_RESTARTS} rings")
+    if launches["vmem_solve_triangular"] != 4 * boundaries:
+        raise AssertionError(f"[multistart] {launches['vmem_solve_triangular']} triangular "
+                             f"solves for {boundaries} round KLs (four solves each)")
+    # the per-restart loop's host cost: the same 100 fixed-rate steps as
+    # four lockstep restarts and as one run, in this call
+    x0 = res["init_var_params"]
+    del res
+    torch.cuda.empty_cache()
+    gen = torch.Generator(DEVICE).manual_seed(65)
+    _, batched_wall, _ = timed_run(lambda: multistart_optimize(
+        vt.RMSProp(FLAGSHIP_LR), MS_RATE_STEPS, objective, x0, gen))
+    _, single_wall, _ = timed_run(lambda: vt.RMSProp(FLAGSHIP_LR).optimize(
+        MS_RATE_STEPS, objective, x0[0], generator=gen))
+    batched, single = MS_RATE_STEPS / batched_wall, MS_RATE_STEPS / single_wall
+    log(f"[multistart] {MS_RATE_STEPS} fixed-rate steps: lockstep_steps_per_s={batched:.2f} "
+        f"({MS_RESTARTS} restarts) single_run_steps_per_s={single:.2f} "
+        f"{MS_RESTARTS} x lockstep / single = {MS_RESTARTS * batched / single:.3f}")
+    del objective
+    torch.cuda.empty_cache()
+
+
+class StreamTable:
+    """Base sampler handing out consecutive rows of one table of standard
+    normals (made on the CPU from a seed) on the device the family asks for."""
+
+    def __init__(self, table):
+        self.table, self.pos = table, 0
+
+    def normal(self, generator, n_samples, width, dtype, device):
+        rows = self.table[self.pos:self.pos + n_samples, :width]
+        if rows.shape[0] != n_samples:
+            raise AssertionError("draw table exhausted")
+        self.pos += n_samples
+        return rows.to(device=device, dtype=dtype)
+
+
+def phase_multistart_f64():
+    """multistart_faso (B = 3, 150 steps at k_check 25), multistart_optimize
+    (B = 3, 100 steps) and select_best_restart at d = 1000 in float64 on the
+    card against the CPU, each side drawing from one table of normals:
+    the decisions, the best restart and the optima must agree."""
+    import viabel_torch as vt
+    from viabel_torch import ops
+    from viabel_torch.parallel import multistart_faso, multistart_optimize
+    import viabel_torch.parallel.multistart as engine
+
+    class FixedCostTimer:
+        """One MCSE-check cost for both sides: the recheck schedule reads
+        the wall clock, which differs between the card and the CPU."""
+        interval = 1e-9
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    d, B = FLAGSHIP_DIM, MSF_RESTARTS
+    table = torch.randn((B * 10 * (MSF_FASO_ITERS + MSF_OPT_ITERS) + 1000, d),
+                        generator=torch.Generator().manual_seed(63), dtype=torch.float64)
+    jitter = 0.01 * torch.randn((B, d + d * d), generator=torch.Generator().manual_seed(64),
+                                dtype=torch.float64)
+
+    def run_side(device):
+        sampler = StreamTable(table)
+        approx = vt.FullRankGaussian(d, base_sampler=sampler, device=device,
+                                     dtype=torch.float64)
+        objective = vt.ExclusiveKL(approx, flagship_model(device=device, dtype=torch.float64),
+                                   10, use_path_deriv=True)
+        x0 = approx.init_param() + jitter.to(device)
+        start = time.perf_counter()
+        ops.reset_launch_counts()
+        faso = multistart_faso(vt.RMSProp(FLAGSHIP_LR), MSF_FASO_ITERS, objective, x0,
+                               max_history=MSF_FASO_ITERS, **MS_DETECTION)
+        faso_launches = ops.launch_counts()
+        ops.reset_launch_counts()
+        plain = multistart_optimize(vt.RMSProp(FLAGSHIP_LR), MSF_OPT_ITERS, objective, x0)
+        plain_launches = ops.launch_counts()
+        best, scores = vt.select_best_restart(faso["opt_param"], objective=objective)
+        if device == DEVICE:
+            torch.cuda.synchronize()
+        return (faso, plain, best, scores, sampler.pos, (faso_launches, plain_launches),
+                time.perf_counter() - start)
+
+    timer, engine.Timer = engine.Timer, FixedCostTimer
+    try:
+        card, host = run_side(DEVICE), run_side("cpu")
+    finally:
+        engine.Timer = timer
+    faso_c, plain_c, best_c, scores_c, pos_c, card_launches, wall_c = card
+    faso_h, plain_h, best_h, scores_h, pos_h, _, wall_h = host
+    errs = {"faso_opt_param": max_rel_err(faso_c["opt_param"], faso_h["opt_param"]),
+            "faso_final_param": max_rel_err(faso_c["final_param"], faso_h["final_param"]),
+            "optimize_opt_param": max_rel_err(plain_c["opt_param"], plain_h["opt_param"]),
+            "restart_elbos": max_rel_err(scores_c, scores_h)}
+    faso_steps = int(faso_c["value_history"].shape[1])
+    log(f"[multistart_f64] d={d} B={B} multistart_faso k_conv={faso_c['k_conv']} "
+        f"k_stopped={faso_c['k_stopped']} (CPU {faso_h['k_conv']} {faso_h['k_stopped']}) "
+        f"steps={faso_steps}; multistart_optimize steps={MSF_OPT_ITERS}; best_restart="
+        f"{best_c} (CPU {best_h}); draws {pos_c} (CPU {pos_h}); wall_s card="
+        f"{wall_c:.3f} cpu={wall_h:.3f}")
+    log(f"[multistart_f64] maxnorm_rel_err {', '.join(f'{k}={v:.3e}' for k, v in errs.items())} "
+        f"(limit {PATH_RTOL}); card launches faso={card_launches[0]} "
+        f"optimize={card_launches[1]}")
+    for name in ("k_conv", "k_Rhat", "k_stopped"):
+        if faso_c[name] != faso_h[name]:
+            raise AssertionError(f"[multistart_f64] {name}: card {faso_c[name]}, "
+                                 f"CPU {faso_h[name]}")
+    if best_c != best_h or pos_c != pos_h:
+        raise AssertionError(f"[multistart_f64] best restart {best_c} / {best_h}, "
+                             f"draws {pos_c} / {pos_h}")
+    if not all(v <= PATH_RTOL for v in errs.values()):
+        raise AssertionError(f"[multistart_f64] card against CPU off: {errs}")
+    if (card_launches[0]["stl_transpose_solve"] != B * faso_steps
+            or card_launches[1]["stl_transpose_solve"] != B * MSF_OPT_ITERS):
+        raise AssertionError(f"[multistart_f64] STL launches {card_launches} for "
+                             f"{faso_steps} and {MSF_OPT_ITERS} steps of {B} restarts")
+    del card, host
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -1351,7 +1603,7 @@ def main():
     phase_ring_stats(results)
     phase_stl(results)
     phase_tri_solve(results)
-    res, objective = phase_main_path(counts)
+    res, objective, main_steps_per_s = phase_main_path(counts)
     # the final iterate's factor block, for a float32 check of kernel 2
     d = FLAGSHIP_DIM
     theta = res["opt_param"][d:].reshape(d, d).contiguous()
@@ -1379,6 +1631,9 @@ def main():
     phase_subsampled(path_launches)
     phase_pathfinder(path_launches)
     phase_extras_f64()
+    phase_bridge(path_launches)
+    phase_multistart(path_launches, main_steps_per_s)
+    phase_multistart_f64()
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         # the main path's launches and those of this slice's paths, each

@@ -332,6 +332,7 @@ def test_port_runs_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import torch, viabel_torch as vt\n"
+        "import viabel_torch.parallel, viabel_torch.external\n"
         "model, dim = vt.zoo.funnel()\n"
         "res = vt.bbvi(dim, log_density=model, n_iters=20, device='cpu',\n"
         "              dtype=torch.float64)\n"
@@ -344,17 +345,23 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(num_restarts=2), dict(standardize=True, num_restarts=2),
-    dict(init_method="pathfinder", num_restarts=2),
-    dict(init_var_params=torch.zeros((2, 4), dtype=torch.float64))])
-def test_deferred_routes_raise_with_a_roadmap_pointer(kwargs):
-    """The multistart routes (item 13): the restarts alone, with the pilot
-    standardization, with one Pathfinder path a restart, and as a stack of
-    inits."""
+@pytest.mark.parametrize("route", [
+    "bbvi_async_schedule", "bbvi_mesh", "shard_mc_objective", "FSDPFullRankELBO",
+    "make_mesh", "distributed_init", "ShardedExclusiveKL"])
+def test_deferred_routes_raise_with_a_roadmap_pointer(route):
+    """The distributed half of the parallel engines (item 13b) raises,
+    pointing at ROADMAP.md: bbvi's multistart on the async schedule or on
+    a mesh, and the parallel module's sharded names. The single-device
+    multistart routes run (tests/test_torch_multistart*.py)."""
     model, dim = vt.zoo.funnel()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vt.bbvi(dim, log_density=model, n_iters=5, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 13b"):
+        if route.startswith("bbvi_"):
+            extra = (dict(schedule="async") if route == "bbvi_async_schedule"
+                     else dict(mesh=object()))
+            vt.bbvi(dim, log_density=model, n_iters=5, device="cpu", num_restarts=2,
+                    multistart_kwargs=extra)
+        else:
+            getattr(vt.parallel, route)
 
 
 @pytest.mark.parametrize("given,error", [
@@ -377,7 +384,11 @@ def test_bbvi_fit_raises_as_jax_does(given, error):
                                   "IWELBO", "AlphaDivergence", "Adam",
                                   "AveragedAdam", "Adagrad", "WindowedAdagrad",
                                   "multivariate_t_logpdf", "NeuralNet", "NVPFlow",
-                                  "DISInclusiveKL"])
+                                  "DISInclusiveKL", "elbo_estimates",
+                                  "select_best_restart", "all_diagnostics",
+                                  "error_bounds", "wasserstein_bounds",
+                                  "divergence_bound", "ksd", "ksd_test", "psislw",
+                                  "psisloo", "gpdfitnew", "gpinv", "sumlogs"])
 def test_ported_names_are_exported(name):
     """Each name the JAX package exports at its top level, or from its
     ``distributions`` module, is the port's own class or function."""
@@ -386,3 +397,16 @@ def test_ported_names_are_exported(name):
     assert getattr(vt, name).__module__.startswith("viabel_torch.")
     with pytest.raises(AttributeError):
         vt.no_such_name
+
+
+def test_every_jax_export_is_ported_or_deferred():
+    """Every name of viabel_tpu.__all__ is in viabel_torch.__all__, and
+    the parallel module's names are ported or raise a 13b pointer."""
+    assert set(vj.__all__) <= set(vt.__all__)
+    assert "parallel" in vt.__all__
+    for name in vj.parallel.__all__:
+        if name in vt.parallel.__all__:
+            assert getattr(vt.parallel, name).__module__.startswith("viabel_torch.")
+        else:
+            with pytest.raises(NotImplementedError, match="item 13b"):
+                getattr(vt.parallel, name)

@@ -243,8 +243,8 @@ def test_documented_elbo_offset(injected_pilot):
 
 def test_bbvi_restores_the_model_after_an_error():
     """A prebuilt objective gets its model back when the standardized run
-    raises, as in the JAX package's ``finally``; the route's ValueErrors
-    and the multistart stubs."""
+    raises, as in the JAX package's ``finally``; the route's ValueErrors,
+    and the multistart routes raising after the pilot."""
     mean, sd = _hetero(D)
     model = vt.zoo.diagonal_gaussian(mean, sd, **CPU)[0]
     objective = vt.ExclusiveKL(vt.MFGaussian(D, **CPU), model, 10)
@@ -263,6 +263,10 @@ def test_bbvi_restores_the_model_after_an_error():
     assert objective.model is model
     with pytest.raises(ValueError, match="pilot_kwargs needs standardize=True"):
         vt.bbvi(D, objective=objective, pilot_kwargs=pilot)
+    # the multistart routes: the pilot runs, the engine's leg raises, and
+    # the model comes back
     for kw in (dict(num_restarts=2), dict(init_var_params=torch.zeros(2, 2 * D))):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            vt.bbvi(D, objective=objective, standardize=True, **kw)
+        with pytest.raises(ValueError, match="progress_callback is not supported"):
+            vt.bbvi(D, objective=objective, standardize=True, pilot_kwargs=pilot,
+                    progress_callback=boom, **kw)
+        assert objective.model is model

@@ -11,15 +11,26 @@ DISInclusiveKL objectives, every step rule, FASO and RAABBVI resume and
 wall-clock budgets with the ``.npz`` checkpoint, the tempered and
 subsampled models, constrained-parameter transforms, randomized
 quasi-Monte Carlo base samplers, Pathfinder, ``bbvi``'s pilot
-standardization and Pathfinder initialization, and the
-``vi_diagnostics`` front door (PSIS, the error bounds, the KSD test).
-Kernels live in :mod:`viabel_torch.ops`. Every entry point runs on the
+standardization and Pathfinder initialization, the single-device
+multistart engines (:mod:`viabel_torch.parallel`: ``multistart_optimize``,
+``multistart_faso``, the lockstep ``multistart_raabbvi``) with
+``bbvi(num_restarts=...)`` and its restart selection (``elbo_estimates``,
+``select_best_restart``), the C++ model bridge
+(:mod:`viabel_torch.external`), and the ``vi_diagnostics`` front door
+(PSIS with ``psislw``, ``psisloo``, ``gpdfitnew``, ``gpinv`` and
+``sumlogs``; ``all_diagnostics``, ``error_bounds``,
+``wasserstein_bounds``, ``divergence_bound``; the KSD and its test,
+``ksd`` and ``ksd_test``). Kernels live in :mod:`viabel_torch.ops`. Every entry point runs on the
 CUDA card unless the caller passes ``device="cpu"``.
 """
 
 from . import (checkpoint, convert, diagnostics, distributions, families, hmc,
-               mc_diagnostics, objectives, ops, optimizers, psis, qmc, transforms)
-from .convenience import bbvi, pilot_standardize, vi_diagnostics
+               mc_diagnostics, objectives, ops, optimizers, parallel, psis, qmc,
+               transforms)
+from .convenience import (bbvi, elbo_estimates, pilot_standardize, select_best_restart,
+                          vi_diagnostics)
+from .diagnostics import (all_diagnostics, divergence_bound, error_bounds, ksd, ksd_test,
+                          wasserstein_bounds)
 from .distributions import multivariate_normal_logpdf, multivariate_t_logpdf
 from .faso import FASO, RAABBVI
 from .families import (ApproximationFamily, FullRankGaussian, LRGaussian, MFGaussian,
@@ -30,6 +41,7 @@ from .objectives import (AlphaDivergence, DISInclusiveKL, ExclusiveKL, IWELBO,
 from .optimizers import (Adagrad, Adam, AveragedAdam, AveragedRMSProp, Optimizer,
                          RMSProp, StochasticGradientOptimizer, WindowedAdagrad)
 from .pathfinder import multipath_pathfinder, pathfinder, pathfinder_init
+from .psis import gpdfitnew, gpinv, psisloo, psislw, sumlogs
 from .qmc import AntitheticNormal, SobolNormal
 from .transforms import ParamSpec, TransformedModel
 
@@ -44,6 +56,9 @@ __all__ = [
     "Optimizer", "StochasticGradientOptimizer", "RMSProp", "AveragedRMSProp",
     "Adam", "AveragedAdam", "Adagrad", "WindowedAdagrad",
     "FASO", "RAABBVI", "bbvi", "vi_diagnostics", "pilot_standardize",
+    "elbo_estimates", "select_best_restart", "parallel",
+    "all_diagnostics", "error_bounds", "wasserstein_bounds", "divergence_bound",
+    "ksd", "ksd_test", "psislw", "psisloo", "gpdfitnew", "gpinv", "sumlogs",
     "pathfinder", "multipath_pathfinder", "pathfinder_init",
     "ParamSpec", "TransformedModel", "transforms",
     "SobolNormal", "AntitheticNormal", "qmc",

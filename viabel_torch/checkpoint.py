@@ -29,9 +29,9 @@ __all__ = ["save_pytree", "load_pytree"]
 _META_KEY = "__viabel_tpu_treedef__"
 
 #: the Orbax directory backend writes mesh-sharded arrays shard by shard;
-#: it comes with the sharded engines (ROADMAP.md, Queue 1 item 13)
-__getattr__ = deferred_names(__name__, {"save_pytree_orbax": "13",
-                                        "load_pytree_orbax": "13"})
+#: it comes with the sharded engines (ROADMAP.md, Queue 1 item 13b)
+__getattr__ = deferred_names(__name__, {"save_pytree_orbax": "13b",
+                                        "load_pytree_orbax": "13b"})
 
 
 def _flatten(tree, path=()):

@@ -8,12 +8,16 @@ runs PSIS, then the error bounds or, past the k-hat gate, the calibrated
 KSD test. A ``torch.Generator`` replaces the PRNG key. ``bbvi`` also
 takes the two data-driven front routes, ``standardize=True`` (a
 mean-field pilot, :func:`pilot_standardize`) and
-``init_method="pathfinder"``; the multistart route is not ported yet
-(ROADMAP.md).
+``init_method="pathfinder"``, and the multistart route
+(``num_restarts``, ``init_var_params``) through the engines of
+:mod:`viabel_torch.parallel`, whose best restart
+:func:`select_best_restart` picks by a common-random-numbers ELBO
+estimate (:func:`elbo_estimates`).
 """
 
 import math
 
+import numpy as np
 import torch
 
 from .diagnostics import all_diagnostics, ksd_test
@@ -23,10 +27,9 @@ from .models import Model
 from .objectives import ExclusiveKL
 from .optimizers import RMSProp, default_generator
 from .psis import psislw
-from .utils import not_ported
 
-__all__ = ["bbvi", "vi_diagnostics", "psis_correction", "samples_and_log_weights",
-           "pilot_standardize"]
+__all__ = ["bbvi", "vi_diagnostics", "elbo_estimates", "select_best_restart",
+           "psis_correction", "samples_and_log_weights", "pilot_standardize"]
 
 
 def pilot_standardize(dimension, log_density, *, n_iters=8000,
@@ -83,9 +86,10 @@ def bbvi(dimension, *, n_iters=10000, num_mc_samples=10, log_density=None,
          approx=None, objective=None, fit=None, adaptive=True, fixed_lr=False,
          init_var_param=None, learning_rate=0.01, generator=None,
          progress_callback=None, num_restarts=None, init_var_params=None,
-         standardize=False, pilot_kwargs=None, init_method=None,
-         pathfinder_kwargs=None, RMS_kwargs=None, FASO_kwargs=None,
-         RAABBVI_kwargs=None, device="cuda", dtype=None):
+         init_jitter=0.0, init_method=None, pathfinder_kwargs=None,
+         multistart_kwargs=None, standardize=False, pilot_kwargs=None,
+         RMS_kwargs=None, FASO_kwargs=None, RAABBVI_kwargs=None, device="cuda",
+         dtype=None):
     """Fit a model using black-box variational inference
     (reference convenience.py:14-94).
 
@@ -108,17 +112,36 @@ def bbvi(dimension, *, n_iters=10000, num_mc_samples=10, log_density=None,
     :func:`viabel_torch.pathfinder.pathfinder_init` on the model and
     starts from the ELBO-best quasi-Newton Gaussian moment-matched onto
     the family (tune with ``pathfinder_kwargs``, e.g. ``dict(n_paths=4,
-    max_iters=40)``).
+    max_iters=40)``). With ``num_restarts=B`` it runs B paths and starts
+    every restart from its own path's Gaussian.
+
+    Multistart: ``num_restarts=B`` (or a 2-D ``init_var_params`` of shape
+    ``(B, D)``) runs B restarts in lockstep on the same route matrix:
+    ``parallel.multistart_raabbvi`` (adaptive), ``parallel.multistart_faso``
+    (adaptive and ``fixed_lr``) or ``parallel.multistart_optimize`` (plain).
+    ``learning_rate`` may be a shape-``(B,)`` array on the two adaptive
+    routes. With ``num_restarts`` alone the restarts share one init and
+    differ in their draws; ``init_jitter=sigma`` adds ``sigma * N(0, I)``
+    to restarts 1..B-1 (restart 0 keeps the base init exactly). Engine
+    keywords (``rho=``, ``round_callback=``, ...) go in
+    ``multistart_kwargs``. ``opt_param`` is the best restart's optimum,
+    picked by :func:`select_best_restart`, beside ``opt_params`` (B, D),
+    ``best_restart``, ``restart_elbos``, ``init_var_params`` and the
+    engine's per-restart results. ``generator`` draws the jitter, seeds
+    one generator a restart (a single restart draws from it directly) and
+    then draws the selection's common base draws.
 
     Standardization: ``standardize=True`` runs the :func:`pilot_standardize`
     mean-field pilot (tune with ``pilot_kwargs``), optimizes against the
     pilot-standardized target, and folds the affine back into the
     family's parameters in closed form (``fold_affine``), so the returned
-    ``opt_param`` and the results' ``objective`` live in the user's
-    coordinates. The family needs ``fold_affine`` (every location-scale
-    family has it; NeuralNet and NVPFlow do not). An explicit
-    ``init_var_param`` is read in the user's coordinates and unfolded for
-    the run. ``results["standardization"]`` holds ``affine=(p_mu,
+    ``opt_param`` (and a multistart run's ``opt_params``) and the results'
+    ``objective`` live in the user's coordinates. The family needs
+    ``fold_affine`` (every location-scale family has it; NeuralNet and
+    NVPFlow do not). An explicit ``init_var_param`` or ``init_var_params``
+    is read in the user's coordinates and unfolded for the run; a
+    multistart run's ``init_var_params`` and ``restart_elbos`` stay in
+    pilot coordinates. ``results["standardization"]`` holds ``affine=(p_mu,
     p_scale)``, the ``spec`` and the ``pilot_results``. The per-step
     histories stay in pilot coordinates: fold a parameter row back with
     ``approx.fold_affine(row, *results["standardization"]["affine"])``.
@@ -129,10 +152,6 @@ def bbvi(dimension, *, n_iters=10000, num_mc_samples=10, log_density=None,
     folded iterate at the same draws. Only the model term alone, ``E_q
     log p``, is offset by ``sum(log p_scale)`` between the two spaces.
     """
-    if num_restarts is not None:
-        raise not_ported("bbvi(num_restarts=...)", 13)
-    if init_var_params is not None:
-        raise not_ported("bbvi(init_var_params=...)", 13)
     RMS_kwargs = dict(RMS_kwargs or {})
     FASO_kwargs = dict(FASO_kwargs or {})
     RAABBVI_kwargs = dict(RAABBVI_kwargs or {})
@@ -179,11 +198,15 @@ def bbvi(dimension, *, n_iters=10000, num_mc_samples=10, log_density=None,
                                pilot_results=pilot_results)
         orig_model, model = model, std_model
         objective.model = std_model
+        # explicit inits arrive in the user's coordinates; the inverse
+        # affine is itself an affine
+        inv = (-p_mu / p_scale, 1.0 / p_scale)
         if init_var_param is not None:
-            # an explicit init arrives in the user's coordinates; the
-            # inverse affine is itself an affine
-            init_var_param = approx.fold_affine(init_var_param, -p_mu / p_scale,
-                                                1.0 / p_scale)
+            init_var_param = approx.fold_affine(init_var_param, *inv)
+        if init_var_params is not None:
+            init_var_params = torch.stack([
+                approx.fold_affine(vp, *inv) for vp in torch.as_tensor(
+                    init_var_params, dtype=approx.dtype, device=approx.device)])
     elif pilot_kwargs is not None:
         raise ValueError("pilot_kwargs needs standardize=True")
     try:
@@ -191,39 +214,60 @@ def bbvi(dimension, *, n_iters=10000, num_mc_samples=10, log_density=None,
             if init_method != "pathfinder":
                 raise ValueError(f"unknown init_method {init_method!r}; the one "
                                  "built-in data-driven initializer is 'pathfinder'")
-            if init_var_param is not None:
+            if init_var_param is not None or init_var_params is not None:
                 raise ValueError("init_method='pathfinder' computes the init; "
                                  "drop init_var_param(s)")
             from .pathfinder import pathfinder_init
-            init_var_param = pathfinder_init(approx, model, generator,
-                                             **dict(pathfinder_kwargs or {}))
+            pf_kwargs = dict(pathfinder_kwargs or {})
+            if num_restarts is not None:
+                # one path a restart: distinct data-driven basins
+                pf_kwargs.setdefault("n_paths", int(num_restarts))
+                init_var_params = pathfinder_init(approx, model, generator,
+                                                  per_path=True, **pf_kwargs)
+            else:
+                init_var_param = pathfinder_init(approx, model, generator, **pf_kwargs)
         elif pathfinder_kwargs is not None:
             raise ValueError("pathfinder_kwargs needs init_method='pathfinder'")
-        opt_results = _bbvi_single(objective, approx, n_iters, init_var_param,
-                                   learning_rate, generator, adaptive, fixed_lr,
-                                   progress_callback, RMS_kwargs, FASO_kwargs,
-                                   RAABBVI_kwargs)
+        if num_restarts is not None or init_var_params is not None:
+            opt_results = _bbvi_multistart(
+                objective, approx, n_iters, num_restarts, init_var_params,
+                init_var_param, init_jitter, learning_rate, generator, adaptive,
+                fixed_lr, progress_callback, multistart_kwargs, RMS_kwargs,
+                FASO_kwargs, RAABBVI_kwargs)
+        else:
+            opt_results = _bbvi_single(objective, approx, n_iters, init_var_param,
+                                       init_jitter, learning_rate, generator, adaptive,
+                                       fixed_lr, progress_callback, RMS_kwargs,
+                                       FASO_kwargs, RAABBVI_kwargs)
     finally:
         if standardization is not None:
             # the results' objective diagnoses the user's target (a
             # prebuilt objective is restored on an error as well)
             objective.model = orig_model
     if standardization is not None:
-        opt_results["opt_param"] = approx.fold_affine(opt_results["opt_param"],
-                                                      p_mu, p_scale)
+        if "opt_params" in opt_results:
+            opt_results["opt_params"] = torch.stack([
+                approx.fold_affine(vp, p_mu, p_scale) for vp in opt_results["opt_params"]])
+            opt_results["opt_param"] = opt_results["opt_params"][opt_results["best_restart"]]
+        else:
+            opt_results["opt_param"] = approx.fold_affine(opt_results["opt_param"],
+                                                          p_mu, p_scale)
         opt_results["standardization"] = standardization
     return opt_results
 
 
-def _bbvi_single(objective, approx, n_iters, init_var_param, learning_rate,
-                 generator, adaptive, fixed_lr, progress_callback, RMS_kwargs,
-                 FASO_kwargs, RAABBVI_kwargs):
+def _bbvi_single(objective, approx, n_iters, init_var_param, init_jitter,
+                 learning_rate, generator, adaptive, fixed_lr, progress_callback,
+                 RMS_kwargs, FASO_kwargs, RAABBVI_kwargs):
     """The single-run leg of :func:`bbvi`."""
+    if init_jitter:
+        raise ValueError("init_jitter only applies to a multistart run: "
+                         "pass num_restarts")
+    if np.ndim(learning_rate) != 0:
+        raise ValueError("a per-restart learning_rate array needs a "
+                         "multistart run: pass num_restarts")
     if init_var_param is None:
         init_var_param = approx.init_param()
-    if not isinstance(learning_rate, (int, float)):
-        raise ValueError("a per-restart learning_rate array needs a "
-                         "multistart run, which is not ported yet")
     # diagnostics (full per-step histories) on by default like the reference
     RMS_kwargs.setdefault("diagnostics", True)
     base_opt = RMSProp(learning_rate, **RMS_kwargs)
@@ -246,6 +290,209 @@ def _bbvi_single(objective, approx, n_iters, init_var_param, learning_rate,
                                progress_callback=progress_callback)
     opt_results["objective"] = objective
     return opt_results
+
+
+def _bbvi_multistart(objective, approx, n_iters, num_restarts, init_var_params,
+                     init_var_param, init_jitter, learning_rate, generator, adaptive,
+                     fixed_lr, progress_callback, multistart_kwargs, RMS_kwargs,
+                     FASO_kwargs, RAABBVI_kwargs):
+    """The multistart leg of :func:`bbvi`."""
+    # the engines report progress through their own hooks
+    # (multistart_raabbvi's round_callback, through multistart_kwargs)
+    if progress_callback is not None:
+        raise ValueError(
+            "progress_callback is not supported with num_restarts; for the "
+            "adaptive path pass multistart_kwargs=dict(round_callback=...)")
+    from .parallel import multistart_faso, multistart_optimize, multistart_raabbvi
+    multistart_kwargs = dict(multistart_kwargs or {})
+
+    if init_var_params is None:
+        base = approx.init_param() if init_var_param is None else init_var_param
+        if num_restarts is None or int(num_restarts) < 1:
+            raise ValueError("num_restarts must be a positive integer")
+        base = torch.as_tensor(base, dtype=approx.dtype, device=approx.device)
+        init_var_params = base[None].repeat(int(num_restarts), 1)
+        if init_jitter:
+            noise = float(init_jitter) * torch.randn(
+                init_var_params.shape, generator=generator, dtype=approx.dtype,
+                device=approx.device)
+            # restart 0 keeps the user's base init exactly
+            noise[0] = 0.0
+            init_var_params = init_var_params + noise
+    elif init_jitter:
+        raise ValueError("init_jitter only applies when restarts are tiled "
+                         "from one base init; with explicit init_var_params "
+                         "perturb them yourself")
+    else:
+        init_var_params = torch.as_tensor(init_var_params, dtype=approx.dtype,
+                                          device=approx.device)
+        if init_var_params.dim() != 2:
+            raise ValueError("init_var_params must have shape (num_restarts, "
+                             f"var_param_dim); got {tuple(init_var_params.shape)}")
+        if num_restarts is not None and int(num_restarts) != init_var_params.shape[0]:
+            raise ValueError(
+                f"num_restarts={num_restarts} disagrees with "
+                f"init_var_params.shape[0]={init_var_params.shape[0]}")
+    B = init_var_params.shape[0]
+
+    lr = np.asarray(learning_rate, dtype=float)
+    if lr.ndim not in (0, 1) or (lr.ndim == 1 and lr.shape[0] != B):
+        raise ValueError("learning_rate must be a scalar or a shape-"
+                         f"({B},) per-restart array; got shape {lr.shape}")
+    # the engines take the per-restart rates from the array; the rule still
+    # needs one scalar rate (the array's stand-in)
+    sgo = RMSProp(float(lr.mean()), **RMS_kwargs)
+    lr_kwarg = lr if lr.ndim == 1 else None
+
+    def _arm_default_escalation(kwargs):
+        # the single-run routes' defaults-must-converge rationale
+        if ("mc_escalation" not in kwargs
+                and getattr(objective, "num_mc_samples", None) is not None):
+            kwargs["mc_escalation"] = 4.0
+        return kwargs
+
+    if adaptive and not fixed_lr:
+        kwargs = {**RAABBVI_kwargs, **multistart_kwargs}
+        # a single-run kwarg for the coordinate-sharding knob; the
+        # multistart engines do not take it
+        kwargs.pop("shard_axis", None)
+        results = multistart_raabbvi(sgo, n_iters, objective, init_var_params, generator,
+                                     learning_rate=lr_kwarg,
+                                     **_arm_default_escalation(kwargs))
+    elif adaptive and fixed_lr:
+        kwargs = {**FASO_kwargs, **multistart_kwargs}
+        kwargs.pop("shard_axis", None)
+        results = multistart_faso(sgo, n_iters, objective, init_var_params, generator,
+                                  learning_rate=lr_kwarg,
+                                  **_arm_default_escalation(kwargs))
+    elif not adaptive and fixed_lr:
+        if lr_kwarg is not None:
+            raise ValueError("a per-restart learning_rate grid needs the "
+                             "adaptive paths (convergence detection); the "
+                             "plain multistart uses one shared rate")
+        results = multistart_optimize(sgo, n_iters, objective, init_var_params,
+                                      generator, **multistart_kwargs)
+    else:
+        raise ValueError("a decaying learning rate needs the adaptive "
+                         "optimizer: set adaptive=True or fixed_lr=True")
+
+    opt_params = results["opt_param"]
+    best, scores = select_best_restart(opt_params, objective=objective,
+                                       generator=generator)
+    results["init_var_params"] = init_var_params
+    results["opt_params"] = opt_params
+    results["opt_param"] = opt_params[best]
+    results["best_restart"] = best
+    results["restart_elbos"] = scores
+    results["objective"] = objective
+    return results
+
+
+class _CommonDraws:
+    """A family's base sampler that draws one block (through ``inner``)
+    and hands that same block to every later call."""
+
+    def __init__(self, inner):
+        self.inner, self.block = inner, None
+
+    def normal(self, generator, n_samples, width, dtype, device):
+        if self.block is None:
+            self.block = self.inner.normal(generator, n_samples, width, dtype, device)
+        return self.block
+
+
+def elbo_estimates(var_params, *, objective=None, model=None, approx=None,
+                   num_mc_samples=1000, generator=None):
+    """A fresh Monte Carlo ELBO estimate for each row of ``var_params``
+    ``(B, D)``.
+
+    Every restart is scored on the same base draws (common random
+    numbers), so the comparison is paired: each row starts from the same
+    state of ``generator`` (default: seed 0 on the family's device), and a
+    family's injected ``base_sampler`` is asked once, its block reused for
+    every row; afterwards ``generator`` continues from where one row's
+    draws left it. Uses the closed-form entropy when the family has one
+    (``E_q[log p] + H(q)``), else the sampled ``E_q[log p - log q]``.
+    """
+    if objective is not None:
+        if model is not None or approx is not None:
+            raise ValueError("an objective already carries its model and "
+                             "family; drop the model/approx arguments")
+        model = objective.model
+        approx = objective.approx
+    elif model is None or approx is None:
+        raise ValueError("supply an objective, or a model together with an approx")
+    var_params = torch.as_tensor(var_params)
+    if var_params.dim() != 2:
+        raise ValueError("var_params must have shape (n_restarts, "
+                         f"var_param_dim); got {tuple(var_params.shape)}")
+    if generator is None:
+        generator = default_generator(approx.device)
+    n = int(num_mc_samples)
+    fused = getattr(approx, "sample_and_log_density", None)
+
+    def one(vp, g):
+        if approx.supports_entropy:
+            return torch.mean(model(approx.sample(vp, n, g))) + approx.entropy(vp)
+        if fused is not None:
+            # e.g. square NeuralNet pushforwards: an exact density only
+            # jointly with the sample
+            samples, log_q = fused(vp, n, g)
+        else:
+            samples = approx.sample(vp, n, g)
+            log_q = approx.log_density(vp, samples)
+        return torch.mean(model(samples) - log_q)
+
+    if not approx.supports_entropy:
+        # probe density support on a known-good parameter with a throwaway
+        # generator, so that a capability gap is diagnosed as such while
+        # errors from the user's var_params propagate raw below
+        try:
+            probe = torch.Generator(approx.device).manual_seed(0)
+            if fused is not None:
+                fused(approx.init_param(), 2, probe)
+            else:
+                approx.log_density(approx.init_param(),
+                                   approx.sample(approx.init_param(), 2, probe))
+        except (NotImplementedError, ValueError) as exc:
+            raise ValueError(
+                f"{type(approx).__name__} supports neither closed-form "
+                "entropy nor a sample log density, so restarts cannot be "
+                "ELBO-scored; select a restart yourself (e.g. by a fresh "
+                "objective loss)") from exc
+    inner = approx.base_sampler
+    if inner is not None:
+        approx._base_sampler = _CommonDraws(inner)
+    start, after, scores = generator.get_state(), None, []
+    try:
+        for vp in var_params.detach():
+            generator.set_state(start)
+            scores.append(one(vp, generator).detach())
+            if after is None:
+                after = generator.get_state()
+    finally:
+        if inner is not None:
+            approx._base_sampler = inner
+    generator.set_state(after)
+    return torch.stack(scores)
+
+
+def select_best_restart(var_params, *, objective=None, model=None, approx=None,
+                        num_mc_samples=1000, generator=None):
+    """The highest-ELBO row of ``var_params`` ``(B, D)``.
+
+    Returns ``(best_index, elbo_scores)``; non-finite scores (a diverged
+    restart) lose to any finite one. See :func:`elbo_estimates` for the
+    scoring rule.
+    """
+    scores = elbo_estimates(var_params, objective=objective, model=model,
+                            approx=approx, num_mc_samples=num_mc_samples,
+                            generator=generator)
+    finite = torch.isfinite(scores)
+    if not bool(torch.any(finite)):
+        raise ValueError("every restart's ELBO estimate is non-finite; "
+                         "nothing to select")
+    return int(torch.argmax(torch.where(finite, scores, -torch.inf))), scores
 
 
 def vi_diagnostics(var_param, *, objective=None, model=None, approx=None,

@@ -20,7 +20,7 @@ segment boundary (save it with :mod:`viabel_torch.checkpoint`), and
 place of the JAX package's PRNG key the state carries the generator's
 ``get_state()``; a resumed run sets it into the caller's generator, which
 must be on the same device type. ``mesh`` is not ported yet (ROADMAP.md,
-Queue 1 item 13).
+Queue 1 item 13b).
 """
 
 import math
@@ -88,8 +88,10 @@ def _clone_state(state):
 def _set_generator_state(generator, state):
     """Continue ``generator`` from a saved ``get_state()``. A CPU and a
     CUDA generator keep states of different sizes, and one cannot seed
-    the other."""
-    state = torch.as_tensor(state, dtype=torch.uint8, device="cpu")
+    the other. The state is copied first: ``set_state`` reads a view
+    with a storage offset (a row of stacked states) from the wrong place
+    and can crash."""
+    state = torch.as_tensor(state, dtype=torch.uint8, device="cpu").clone()
     if state.numel() != generator.get_state().numel():
         raise ValueError(
             "the resume_state's generator_state was taken from a generator on "
@@ -246,7 +248,7 @@ class FASO(Optimizer):
         if not isinstance(sgo, StochasticGradientOptimizer):
             raise ValueError("sgo must be a subclass of StochasticGradientOptimizer")
         if mesh is not None:
-            raise not_ported("FASO(mesh=...)", 13)
+            raise not_ported("FASO(mesh=...)", "13b")
         self._sgo = sgo
         self._mcse_threshold = float(mcse_threshold)
         self._W_min = int(W_min)

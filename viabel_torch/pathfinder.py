@@ -377,7 +377,7 @@ def multipath_pathfinder(model, init_points, generator=None, *, max_iters=60,
     ``pool_samples``, ``pool_log_p`` and ``pool_log_q``.
     """
     if mesh is not None or shard_axis is not None:
-        raise not_ported("multipath_pathfinder(mesh=...)", 13)
+        raise not_ported("multipath_pathfinder(mesh=...)", "13b")
     inits = torch.as_tensor(init_points)
     if inits.dim() != 2:
         raise ValueError("init_points must be (n_paths, d)")
