@@ -14,7 +14,11 @@ subsampled model, Pathfinder and bbvi's Pathfinder initialization, and the
 transforms, affine folds and scrambles in float64 against the CPU; then the
 C++ model bridge against the zoo and under bbvi, bbvi's multistart route
 (lockstep RAABBVI over four restarts), and the multistart engines and
-restart selection in float64 against the CPU.
+restart selection in float64 against the CPU; then multistart RAABBVI on
+the lockstep and the async schedule side by side, the async schedule in
+float64 against the CPU, and the Monte Carlo sample axis over a one-rank
+NCCL group (each sharded objective's step against its unsharded step, and
+a FASO run).
 
     python3 chip_smoke.py
 
@@ -93,6 +97,24 @@ MS_RESTARTS, MS_ITERS, MS_JITTER, MS_RATE_STEPS = 4, 200, 0.01, 100
 MS_DETECTION = dict(W_min=50, k_check=25, check_pipeline=0, rhat_threshold=3.0,
                     rhat_quantile=0.5, mcse_threshold=0.05, ESS_min=1.0)
 MSF_RESTARTS, MSF_FASO_ITERS, MSF_OPT_ITERS = 3, 150, 100
+#: [multistart_async]: the [multistart] configuration with per-restart MCSE
+#: thresholds. Restarts 0 and 1 pass their gate at each round's first
+#: check (k = 75, as in [multistart]); restarts 2 and 3 never do (a trend's
+#: MCSE does not fall), so their first round runs their whole budget. On
+#: the lockstep schedule the fast restarts wait out that round; on the
+#: async one they go on to their next rounds at once.
+MSA_ITERS = 200
+MSA_MCSE = (0.05, 0.05, 1e-6, 1e-6)
+#: [multistart_async_f64]: B = 2 on an lr grid, float64, card against CPU,
+#: the regression stubbed on both sides. W_min 25 ends each round at its
+#: first check, k = 50, and a 200-row ring keeps the CPU side's MCSE
+#: checks (an FFT over a million coordinates each) short: two rounds a
+#: restart, then each restart's budget runs out in its third
+MSAF_ITERS, MSAF_LR = 110, (0.001, 0.0005)
+MSAF_DETECTION = dict(MS_DETECTION, W_min=25, max_history=200)
+#: [mc_sharded]: a one-rank NCCL group on the card; f32 agreement of each
+#: sharded step with its unsharded step on the same draws, and the FASO run
+MC_RTOL, MC_FASO_ITERS = 1e-6, 1000
 #: NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, and FLOP/s outside the
 #: tensor cores by element type
 PEAK_BYTES_PER_S = 3.35e12
@@ -1585,6 +1607,295 @@ def phase_multistart_f64():
     torch.cuda.empty_cache()
 
 
+def round_lengths(res):
+    """Each restart's round lengths: the first round's (its total less the
+    later rounds', which conv_iters_hist lists), then the later ones."""
+    return [[int(k) - sum(c)] + [int(v) for v in c] if int(k) else list(c)
+            for k, c in zip(res["k_total"], res["conv_iters_hist"])]
+
+
+class TimedRegression:
+    """RAABBVI's weighted regression (the host-side HMC), timed: seconds
+    and calls, while installed."""
+
+    def __init__(self):
+        import viabel_torch as vt
+        self.cls, self.orig = vt.RAABBVI, vt.RAABBVI.weighted_linear_regression
+        self.seconds, self.calls = 0.0, 0
+
+    def __enter__(self):
+        orig = self.orig
+
+        def timed(inner_self, *args, **kwargs):
+            start = time.perf_counter()
+            try:
+                return orig(inner_self, *args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - start
+                self.calls += 1
+
+        self.cls.weighted_linear_regression = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.weighted_linear_regression = self.orig
+        return False
+
+
+def phase_multistart_async(path_launches):
+    """The [multistart] configuration (FullRankGaussian(1000), STL on the
+    flagship model, S = 10, lr 0.001, a 600-row ring a restart, B = 4)
+    with per-restart MCSE thresholds (MSA_MCSE), run on the lockstep and
+    then on the async schedule of multistart_raabbvi: global steps, rounds
+    and round lengths a restart, wall, the HMC regressions' time, peak
+    memory and each kernel's launches."""
+    import viabel_torch as vt
+    from viabel_torch.parallel import multistart_raabbvi
+    d, B = FLAGSHIP_DIM, MS_RESTARTS
+    approx = vt.FullRankGaussian(d, device=DEVICE, dtype=torch.float32)
+    objective = vt.ExclusiveKL(approx, flagship_model(), 10, use_path_deriv=True)
+    x0 = approx.init_param()[None].repeat(B, 1)
+    x0[1:] += MS_JITTER * torch.randn(x0[1:].shape, device=DEVICE,
+                                      generator=torch.Generator(DEVICE).manual_seed(70))
+    settings = dict(MS_DETECTION, mcse_threshold=np.asarray(MSA_MCSE), max_history=600,
+                    verbose=False)
+    log(f"[multistart_async] B={B} n_iters={MSA_ITERS} lr={FLAGSHIP_LR} "
+        f"settings={settings}")
+    runs = {}
+    for schedule in ("lockstep", "async"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with TimedRegression() as hmc:
+            res, wall, launches = timed_run(lambda: multistart_raabbvi(
+                vt.RMSProp(FLAGSHIP_LR), MSA_ITERS, objective, x0,
+                torch.Generator(DEVICE).manual_seed(71), schedule=schedule, **settings))
+        peak = torch.cuda.max_memory_allocated()
+        steps = res["k_global_steps"]
+        kls = sum(len(h) for h in res["SKL_history"])
+        lengths = round_lengths(res)
+        log(f"[multistart_async] [{schedule}] k_global_steps={steps} completed_rounds="
+            f"{[len(r) for r in lengths]} n_rounds_per_restart="
+            f"{res.get('n_rounds_per_restart', 'n/a')} round_lengths={lengths} "
+            f"k_stopped_final={res['k_stopped_final']} "
+            f"budget_overrun={res['budget_overrun']} lr_hist={res['learning_rate_hist']}")
+        log(f"[multistart_async] [{schedule}] wall_s={wall:.3f} hmc_s={hmc.seconds:.3f} "
+            f"hmc_calls={hmc.calls} round_kls={kls} max_memory_allocated_bytes={peak} "
+            f"launches={launches}")
+        if not torch.isfinite(res["opt_param"]).all():
+            raise AssertionError(f"[multistart_async] [{schedule}] an optimum is not finite")
+        for name, count in launches.items():
+            if count <= 0:
+                raise AssertionError(f"[multistart_async] [{schedule}] kernel {name} was "
+                                     "not launched")
+        if launches["stl_transpose_solve"] != B * steps:
+            raise AssertionError(f"[multistart_async] [{schedule}] "
+                                 f"{launches['stl_transpose_solve']} STL solves in {steps} "
+                                 f"global steps of {B} restarts")
+        if launches["vmem_solve_triangular"] != 4 * kls:
+            raise AssertionError(f"[multistart_async] [{schedule}] "
+                                 f"{launches['vmem_solve_triangular']} triangular solves for "
+                                 f"{kls} round KLs (four solves each)")
+        runs[schedule] = (steps, wall)
+        if schedule == "async":
+            path_launches["multistart_async"] = launches
+        del res
+    log(f"[multistart_async] global steps lockstep / async = {runs['lockstep'][0]} / "
+        f"{runs['async'][0]}; wall lockstep / async = {runs['lockstep'][1]:.3f} / "
+        f"{runs['async'][1]:.3f} s")
+    del objective, approx
+    torch.cuda.empty_cache()
+
+
+def phase_multistart_async_f64():
+    """The async multistart_raabbvi at d = 1000 in float64, B = 2 on an lr
+    grid, on the card against the CPU, each side drawing from one table of
+    normals, with the MCSE timer and the regression's (kappa, c) fixed on
+    both sides: the per-restart decisions must be equal and the optima
+    agree."""
+    import viabel_torch as vt
+    from viabel_torch import ops
+    from viabel_torch.parallel import multistart_raabbvi
+    import viabel_torch.parallel.raabbvi as async_schedule
+
+    class FixedCostTimer:
+        interval = 1e-9
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    d, B = FLAGSHIP_DIM, len(MSAF_LR)
+    table = torch.randn((B * 10 * (MSAF_ITERS + 50), d),
+                        generator=torch.Generator().manual_seed(72), dtype=torch.float64)
+    jitter = 0.01 * torch.randn((B, d + d * d), generator=torch.Generator().manual_seed(73),
+                                dtype=torch.float64)
+    settings = dict(MSAF_DETECTION, learning_rate=np.asarray(MSAF_LR), schedule="async",
+                    verbose=False)
+
+    def run_side(device):
+        sampler = StreamTable(table)
+        approx = vt.FullRankGaussian(d, base_sampler=sampler, device=device,
+                                     dtype=torch.float64)
+        objective = vt.ExclusiveKL(approx, flagship_model(device=device, dtype=torch.float64),
+                                   10, use_path_deriv=True)
+        x0 = approx.init_param() + jitter.to(device)
+        start = time.perf_counter()
+        ops.reset_launch_counts()
+        res = multistart_raabbvi(vt.RMSProp(FLAGSHIP_LR), MSAF_ITERS, objective, x0,
+                                 **settings)
+        launches = ops.launch_counts()
+        if device == DEVICE:
+            torch.cuda.synchronize()
+        return res, sampler.pos, launches, time.perf_counter() - start
+
+    timer, async_schedule.Timer = async_schedule.Timer, FixedCostTimer
+    regression = vt.RAABBVI.weighted_linear_regression
+    vt.RAABBVI.weighted_linear_regression = lambda self, *a, **k: (None, 0.6, 0.8)
+    try:
+        (res_c, pos_c, launches, wall_c), (res_h, pos_h, _, wall_h) = (
+            run_side(DEVICE), run_side("cpu"))
+    finally:
+        async_schedule.Timer = timer
+        vt.RAABBVI.weighted_linear_regression = regression
+    err = max_rel_err(res_c["opt_param"], res_h["opt_param"])
+    log(f"[multistart_async_f64] d={d} B={B} k_stopped_final={res_c['k_stopped_final']} "
+        f"n_rounds_per_restart={res_c['n_rounds_per_restart']} k_global_steps="
+        f"{res_c['k_global_steps']} budget_overrun={res_c['budget_overrun']} (CPU "
+        f"{res_h['k_stopped_final']} {res_h['n_rounds_per_restart']} "
+        f"{res_h['k_global_steps']} {res_h['budget_overrun']}); draws {pos_c} (CPU {pos_h}); "
+        f"wall_s card={wall_c:.3f} cpu={wall_h:.3f}")
+    log(f"[multistart_async_f64] opt_param maxnorm_rel_err={err:.3e} (limit {DIS_RTOL}); "
+        f"card launches={launches}")
+    for name in ("k_stopped_final", "n_rounds_per_restart", "k_global_steps", "k_total",
+                 "conv_iters_hist", "budget_overrun"):
+        if res_c[name] != res_h[name]:
+            raise AssertionError(f"[multistart_async_f64] {name}: card {res_c[name]}, "
+                                 f"CPU {res_h[name]}")
+    if pos_c != pos_h or not err <= DIS_RTOL:
+        raise AssertionError(f"[multistart_async_f64] draws {pos_c} / {pos_h}, "
+                             f"opt_param rel err {err}")
+    if min(res_c["n_rounds_per_restart"]) < 2 or launches["vmem_solve_triangular"] < 4:
+        raise AssertionError("[multistart_async_f64] a restart did not advance to a round "
+                             "KL")
+    if launches["stl_transpose_solve"] != B * res_c["k_global_steps"]:
+        raise AssertionError(f"[multistart_async_f64] STL launches {launches} for "
+                             f"{res_c['k_global_steps']} steps of {B} restarts")
+    del res_c, res_h
+    torch.cuda.empty_cache()
+
+
+def free_port():
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mc_sharded(path_launches, main_steps_per_s):
+    """MC-sample data parallelism on a one-rank NCCL group (NCCL takes one
+    rank a card): ShardedExclusiveKL on the flagship (STL, S = 10), and
+    shard_mc_objective over DReG IWELBO, AlphaDivergence and DIS without
+    resampling, each one step against its unsharded step on the same
+    injected draws (every all-reduce runs, over one rank); then a FASO run
+    over the sharded flagship objective. The group is torn down at the
+    end of the phase."""
+    import torch.distributed as dist
+    import viabel_torch as vt
+    from viabel_torch import ops
+    from viabel_torch.parallel import (ShardedExclusiveKL, distributed_init, make_mesh,
+                                       shard_mc_objective)
+    d = FLAGSHIP_DIM
+    address = f"tcp://127.0.0.1:{free_port()}"
+    distributed_init(address, world_size=1, rank=0, device_type=DEVICE)
+    try:
+        mesh = make_mesh(device_type=DEVICE)
+        log(f"[mc_sharded] backend={dist.get_backend()} world_size={dist.get_world_size()} "
+            f"mesh={mesh}")
+        gen = torch.Generator().manual_seed(80)
+        table = torch.randn((DIS_S, d), generator=gen, dtype=torch.float64)
+        sampler = TableNormal(table)
+        family = dict(device=DEVICE, dtype=torch.float32)
+        x = vt.FullRankGaussian(d, **family).init_param()
+        x = x + 0.05 * torch.randn(x.shape, device=DEVICE,
+                                   generator=torch.Generator(DEVICE).manual_seed(81)) / d**0.5
+        model = flagship_model()
+        launches_total = {}
+
+        def sharded_step(tag, sharded, plain, expect):
+            """One sharded step (launches counted) and the unsharded step on
+            the same draws (not counted), held to MC_RTOL."""
+            def step(objective):
+                return objective.value_and_grad_with_state(
+                    x, torch.Generator(DEVICE).manual_seed(82), objective.init_obj_state(x))
+
+            out_s, wall, launches = timed_run(lambda: step(sharded))
+            out_p = step(plain)
+            v_err = abs(float(out_s[0]) - float(out_p[0])) / max(abs(float(out_p[0])), 1e-30)
+            g_err = max_rel_err(out_s[1], out_p[1].cpu())
+            log(f"[mc_sharded] {tag}: value={float(out_s[0]):.6f} value_rel_err={v_err:.3e} "
+                f"grad_maxnorm_rel_err={g_err:.3e} (limit {MC_RTOL}) wall_s={wall:.4f} "
+                f"launches={launches}")
+            if not (v_err <= MC_RTOL and g_err <= MC_RTOL):
+                raise AssertionError(f"[mc_sharded] {tag}: sharded against unsharded "
+                                     f"value {v_err}, gradient {g_err}")
+            for name, count in expect.items():
+                if launches[name] != count:
+                    raise AssertionError(f"[mc_sharded] {tag}: {launches[name]} launches of "
+                                         f"{name}, expected {count}")
+            for name, count in launches.items():
+                launches_total[name] = launches_total.get(name, 0) + count
+
+        def full_rank():
+            return vt.FullRankGaussian(d, base_sampler=sampler, **family)
+
+        sharded_step("ShardedExclusiveKL (STL, S=10)",
+                     ShardedExclusiveKL(full_rank(), model, 10, mesh, use_path_deriv=True),
+                     vt.ExclusiveKL(full_rank(), model, 10, use_path_deriv=True),
+                     {"stl_transpose_solve": 1})
+        for tag, make, expect in (
+                ("IWELBO (DReG, S=10)", lambda: vt.IWELBO(full_rank(), model, 10),
+                 {"stl_transpose_solve": 1}),
+                ("AlphaDivergence (alpha=2, S=10)",
+                 lambda: vt.AlphaDivergence(full_rank(), model, 10, 2.0),
+                 {"vmem_solve_triangular": 2}),
+                (f"DISInclusiveKL (no resampling, S={DIS_S})",
+                 lambda: dis_objective(False, base_sampler=sampler),
+                 {"vmem_solve_triangular": 2})):
+            sharded_step(tag, shard_mc_objective(make(), mesh), make(), expect)
+        # FASO over the sharded flagship objective, real draws
+        objective = ShardedExclusiveKL(vt.FullRankGaussian(d, **family), model, 10, mesh,
+                                       use_path_deriv=True)
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, launches = timed_run(lambda: vt.FASO(
+            vt.RMSProp(FLAGSHIP_LR), max_history=600).optimize(
+                MC_FASO_ITERS, objective, objective.approx.init_param(),
+                generator=torch.Generator(DEVICE).manual_seed(83)))
+        steps = report_run("[mc_sharded] [faso]", res, wall, launches)
+        # the same run on the unsharded objective, for the all-reduce's cost
+        plain = vt.ExclusiveKL(vt.FullRankGaussian(d, **family), model, 10,
+                               use_path_deriv=True)
+        _, plain_wall, _ = timed_run(lambda: vt.FASO(
+            vt.RMSProp(FLAGSHIP_LR), max_history=600).optimize(
+                MC_FASO_ITERS, plain, plain.approx.init_param(),
+                generator=torch.Generator(DEVICE).manual_seed(83)))
+        log(f"[mc_sharded] [faso] sharded_steps_per_s={steps / wall:.2f} "
+            f"unsharded_steps_per_s={MC_FASO_ITERS / plain_wall:.2f} "
+            f"main_steps_per_s={main_steps_per_s:.2f} k_conv={res['k_conv']} "
+            f"k_stopped={res['k_stopped']} max_memory_allocated_bytes="
+            f"{torch.cuda.max_memory_allocated()}")
+        if launches["stl_transpose_solve"] != steps or launches["ring_group_stats"] <= 0:
+            raise AssertionError(f"[mc_sharded] [faso] launches {launches} in {steps} steps")
+        for name, count in launches.items():
+            launches_total[name] = launches_total.get(name, 0) + count
+        path_launches["mc_sharded"] = launches_total
+        del res, objective
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -1634,6 +1945,9 @@ def main():
     phase_bridge(path_launches)
     phase_multistart(path_launches, main_steps_per_s)
     phase_multistart_f64()
+    phase_multistart_async(path_launches)
+    phase_multistart_async_f64()
+    phase_mc_sharded(path_launches, main_steps_per_s)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         # the main path's launches and those of this slice's paths, each

@@ -328,16 +328,22 @@ def test_wls_and_skl_round_update_match_jax(monkeypatch):
 
 def test_port_runs_without_jax():
     """viabel_torch imports nothing of JAX: with JAX blocked, the package
-    imports and a 20-step bbvi runs."""
+    imports, a 20-step bbvi runs, and so does an async multistart_raabbvi."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import torch, viabel_torch as vt\n"
-        "import viabel_torch.parallel, viabel_torch.external\n"
+        "import viabel_torch.parallel, viabel_torch.parallel.mesh, viabel_torch.external\n"
         "model, dim = vt.zoo.funnel()\n"
         "res = vt.bbvi(dim, log_density=model, n_iters=20, device='cpu',\n"
         "              dtype=torch.float64)\n"
         "assert res['value_history'].shape == (20,)\n"
         "assert torch.isfinite(res['opt_param']).all()\n"
+        "obj = vt.ExclusiveKL(vt.MFGaussian(dim, device='cpu', dtype=torch.float64),\n"
+        "                     model, 10)\n"
+        "x0 = torch.zeros((2, 2 * dim), dtype=torch.float64)\n"
+        "res = vt.parallel.multistart_raabbvi(vt.RMSProp(0.05), 300, obj, x0,\n"
+        "                                     schedule='async', W_min=50, verbose=False)\n"
+        "assert res['k_global_steps'] >= 300 and len(res['n_rounds_per_restart']) == 2\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m.startswith('viabel_tpu')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -346,22 +352,37 @@ def test_port_runs_without_jax():
 
 
 @pytest.mark.parametrize("route", [
-    "bbvi_async_schedule", "bbvi_mesh", "shard_mc_objective", "FSDPFullRankELBO",
-    "make_mesh", "distributed_init", "ShardedExclusiveKL"])
+    "bbvi_mesh", "FSDPFullRankELBO", "multistart_optimize_mc_axis", "multistart_faso_mesh",
+    "multistart_raabbvi_mesh", "FASO_mesh", "multipath_pathfinder_mesh",
+    "save_pytree_orbax"])
 def test_deferred_routes_raise_with_a_roadmap_pointer(route):
-    """The distributed half of the parallel engines (item 13b) raises,
-    pointing at ROADMAP.md: bbvi's multistart on the async schedule or on
-    a mesh, and the parallel module's sharded names. The single-device
-    multistart routes run (tests/test_torch_multistart*.py)."""
+    """What is left of item 13b raises, pointing at ROADMAP.md: every
+    engine's mesh (bbvi's multistart, multistart_optimize's mc_axis,
+    multistart_faso, multistart_raabbvi, FASO, multipath_pathfinder),
+    FSDPFullRankELBO and the Orbax pair. The single-device multistart
+    routes, the async schedule and the MC-sample axis run
+    (tests/test_torch_multistart*.py, tests/test_torch_async_raabbvi.py,
+    tests/test_torch_mc_sharded.py)."""
     model, dim = vt.zoo.funnel()
+    obj = vt.ExclusiveKL(vt.MFGaussian(dim, device="cpu", dtype=torch.float64), model, 2)
+    x0 = torch.zeros((2, 2 * dim), dtype=torch.float64)
+    calls = {
+        "bbvi_mesh": lambda: vt.bbvi(dim, log_density=model, n_iters=5, device="cpu",
+                                     num_restarts=2, multistart_kwargs=dict(mesh=object())),
+        "FSDPFullRankELBO": lambda: vt.parallel.FSDPFullRankELBO,
+        "multistart_optimize_mc_axis": lambda: vt.parallel.multistart_optimize(
+            vt.RMSProp(0.05), 5, obj, x0, mc_axis="mc"),
+        "multistart_faso_mesh": lambda: vt.parallel.multistart_faso(
+            vt.RMSProp(0.05), 5, obj, x0, mesh=object()),
+        "multistart_raabbvi_mesh": lambda: vt.parallel.multistart_raabbvi(
+            vt.RMSProp(0.05), 5, obj, x0, mesh=object(), schedule="async"),
+        "FASO_mesh": lambda: vt.FASO(vt.RMSProp(0.05), mesh=object()),
+        "multipath_pathfinder_mesh": lambda: vt.multipath_pathfinder(
+            model, x0[:, :dim], mesh=object()),
+        "save_pytree_orbax": lambda: vt.checkpoint.save_pytree_orbax,
+    }
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 13b"):
-        if route.startswith("bbvi_"):
-            extra = (dict(schedule="async") if route == "bbvi_async_schedule"
-                     else dict(mesh=object()))
-            vt.bbvi(dim, log_density=model, n_iters=5, device="cpu", num_restarts=2,
-                    multistart_kwargs=extra)
-        else:
-            getattr(vt.parallel, route)
+        calls[route]()
 
 
 @pytest.mark.parametrize("given,error", [

@@ -160,3 +160,19 @@ def test_elbo_estimates_entropy_free_families():
     with pytest.raises(ValueError, match="ELBO-scored"):
         vt.elbo_estimates(torch.as_tensor(rng.randn(2, wide.var_param_dim) / 10),
                           model=model, approx=wide)
+
+
+def test_elbo_estimates_of_no_rows_is_empty():
+    """(0, D) rows score to an empty tensor on the caller's device and in
+    its dtype, as JAX's empty array, and draw nothing: the generator's
+    state is as it was."""
+    (model_j, approx_j, _), (model_t, approx_t, smp_t), _ = _mf_pair()
+    s_j = jconv.elbo_estimates(jnp.zeros((0, 4)), model=model_j, approx=approx_j,
+                               key=jax.random.PRNGKey(0))
+    g = torch.Generator().manual_seed(3)
+    before = g.get_state().clone()
+    s_t = vt.elbo_estimates(torch.zeros((0, 4), dtype=torch.float64), model=model_t,
+                            approx=approx_t, generator=g)
+    assert s_t.shape == tuple(np.asarray(s_j).shape) == (0,)
+    assert s_t.dtype == torch.float64 and s_t.device.type == "cpu"
+    assert torch.equal(g.get_state(), before) and smp_t.pos == 0

@@ -150,3 +150,14 @@ def test_raabbvi_over_averaged_adam_matches_jax(fixed_clocks):
                                rtol=1e-8, atol=1e-12)
     np.testing.assert_allclose(res_t["value_history"].numpy(),
                                np.asarray(res_j["value_history"]), rtol=1e-8)
+
+
+@pytest.mark.parametrize("name", ["RMSProp", "AveragedRMSProp", "Adam", "AveragedAdam",
+                                  "Adagrad", "WindowedAdagrad"])
+def test_reset_state_is_the_jax_no_op(name):
+    """Every step rule keeps JAX's ``reset_state`` for API parity: it
+    returns None and changes nothing (the state is explicit)."""
+    sgo_j, sgo_t = getattr(vj, name)(0.01), getattr(vt, name)(0.01)
+    assert sgo_j.reset_state() is None
+    assert sgo_t.reset_state() is None
+    assert sgo_t._learning_rate == 0.01

@@ -13,9 +13,12 @@ subsampled models, constrained-parameter transforms, randomized
 quasi-Monte Carlo base samplers, Pathfinder, ``bbvi``'s pilot
 standardization and Pathfinder initialization, the single-device
 multistart engines (:mod:`viabel_torch.parallel`: ``multistart_optimize``,
-``multistart_faso``, the lockstep ``multistart_raabbvi``) with
-``bbvi(num_restarts=...)`` and its restart selection (``elbo_estimates``,
-``select_best_restart``), the C++ model bridge
+``multistart_faso``, ``multistart_raabbvi`` on the lockstep and the async
+schedule) with ``bbvi(num_restarts=...)`` and its restart selection
+(``elbo_estimates``, ``select_best_restart``), Monte Carlo sample-axis
+data parallelism over ``torch.distributed`` (``make_mesh``,
+``distributed_init``, ``ShardedExclusiveKL``, ``shard_mc_objective``),
+the C++ model bridge
 (:mod:`viabel_torch.external`), and the ``vi_diagnostics`` front door
 (PSIS with ``psislw``, ``psisloo``, ``gpdfitnew``, ``gpinv`` and
 ``sumlogs``; ``all_diagnostics``, ``error_bounds``,

@@ -426,6 +426,9 @@ def elbo_estimates(var_params, *, objective=None, model=None, approx=None,
     if var_params.dim() != 2:
         raise ValueError("var_params must have shape (n_restarts, "
                          f"var_param_dim); got {tuple(var_params.shape)}")
+    if var_params.shape[0] == 0:
+        # no restart to score: nothing is drawn
+        return var_params.new_zeros((0,))
     if generator is None:
         generator = default_generator(approx.device)
     n = int(num_mc_samples)

@@ -20,7 +20,10 @@ segment boundary (save it with :mod:`viabel_torch.checkpoint`), and
 place of the JAX package's PRNG key the state carries the generator's
 ``get_state()``; a resumed run sets it into the caller's generator, which
 must be on the same device type. ``mesh`` is not ported yet (ROADMAP.md,
-Queue 1 item 13b).
+Queue 1 item 13b). Over an MC-sharded objective
+(:func:`viabel_torch.parallel.shard_mc_objective`) every rank runs this
+loop; the decisions that read the wall clock (``max_time`` and the MCSE
+recheck schedule) are rank 0's, through the objective's ``agree``.
 """
 
 import math
@@ -98,6 +101,15 @@ def _set_generator_state(generator, state):
             f"another device type than this {generator.device.type!r} one; pass "
             "a generator on the device type of the run that saved it")
     generator.set_state(state)
+
+
+def _agreed(objective, x):
+    """``x``, or rank 0's reading of it when the objective is sharded over
+    ranks (``agree``): every rank runs its own copy of the loop, and a
+    decision that reads the wall clock must be taken alike on all of them.
+    """
+    agree = getattr(objective, "agree", None)
+    return x if agree is None else agree(x)
 
 
 def _largest_divisor_leq(n, cap):
@@ -511,6 +523,9 @@ class FASO(Optimizer):
             new_S = min(int(math.ceil(objective.num_mc_samples
                                       * mc_escalation)), mc_max)
             objective.num_mc_samples = new_S
+            # the S in use: a sharded objective rounds a rung up to a
+            # multiple of its axis size
+            new_S = int(objective.num_mc_samples)
             if mc_stateful:
                 # re-derive the threaded estimator state at the new count
                 resize = getattr(objective, "resize_obj_state", None)
@@ -535,7 +550,8 @@ class FASO(Optimizer):
         while k < n_iters:
             # the wall-clock budget is enforced at segment boundaries, so a
             # timed-out run stops exactly where a resume can continue it
-            if max_time is not None and _now() - loop_start >= max_time:
+            if (max_time is not None
+                    and _agreed(objective, _now() - loop_start) >= max_time):
                 timed_out = True
                 print("WARNING: wall-clock budget ({:g} s) reached at "
                       "iteration {}; returning partial results "
@@ -617,9 +633,9 @@ class FASO(Optimizer):
                 # optimization time is wall-clock minus check time
                 total_opt_time = resumed_opt_time + max(
                     _now() - loop_start - mcse_time_total, 1e-9)
-                W_check = int(_recheck_scale(total_opt_time / k,
-                                             mcse_timer.interval / W)
-                              * W_check + 1)
+                W_check = int(_agreed(objective, int(
+                    _recheck_scale(total_opt_time / k, mcse_timer.interval / W)
+                    * W_check + 1)))
                 if _plateaued(mc_plateau_mcse):
                     escalate(mc_plateau_mcse[-1])
 
@@ -1050,7 +1066,8 @@ class RAABBVI(FASO):
             if flight is None:
                 budget_spent += k_new + 1
                 K_max -= (k_new + 1)
-                out_of_time = max_time is not None and time_left() <= 0
+                out_of_time = (max_time is not None
+                               and _agreed(objective, time_left()) <= 0)
                 if K_max <= 0 or out_of_time:
                     # the iteration or wall-clock budget ran out between
                     # rounds: resumable at the next round
@@ -1068,7 +1085,9 @@ class RAABBVI(FASO):
             if progress_callback is not None:
                 round_cb = (lambda kk, loss, _off=steps_run_total:
                             progress_callback(_off + kk, loss))
-            round_max_time = time_left()
+            # one budget on every rank of a sharded objective
+            round_max_time = (None if max_time is None
+                              else _agreed(objective, time_left()))
             if k == 0 and self._init_rmsprop:
                 # the warm-start round with plain RMSProp (reference 815-818)
                 faso = FASO(RMSProp(learning_rate=lr_round, diagnostics=diagnostics),

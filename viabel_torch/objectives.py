@@ -24,15 +24,25 @@ grad, obj_state)``, and the optimizers thread it through their loops
 FASO's escalation changes the sample count). A stateless objective has
 the empty state ``{}``.
 
+MC-sample-axis data parallelism: ``ExclusiveKL``, ``IWELBO`` and
+``AlphaDivergence`` have ``mc_sharded_step(mesh, axis_name)``, and DIS
+(without resampling) ``mc_sharded_step_with_state``: the per-rank step
+of :func:`viabel_torch.parallel.shard_mc_objective`. Each rank draws
+``S / n`` samples from a generator derived from the caller's generator and
+its mesh coordinate, and the reductions that couple the samples are
+``torch.distributed`` all-reduces on detached tensors.
+
 A model that draws its own minibatch (``needs_generator``, e.g.
 :class:`~viabel_torch.models.SubsampledModel`) is bound once a step, before
 the family's draw (:func:`_step_model`), so every evaluation in the step
 sees one minibatch; the importance-weight objectives refuse such a model.
 """
 
+import hashlib
 import math
 
 import torch
+import torch.distributed as dist
 from torch import func
 
 __all__ = ["VariationalObjective", "StochasticVariationalObjective",
@@ -63,6 +73,57 @@ def _reject_subsampled(model, objective_name):
             f"{objective_name} requires an exact log density: importance "
             "weights of a subsampled model estimate are biased — use "
             "ExclusiveKL for SubsampledModel")
+
+
+class _ShardAxis:
+    """One mesh axis of MC-sample data parallelism, seen from this rank:
+    its size ``n``, this rank's ``coordinate`` and the axis's process
+    group. Every reduction is an all-reduce on a detached tensor, also at
+    ``n = 1``."""
+
+    def __init__(self, mesh, axis_name):
+        names = tuple(mesh.mesh_dim_names or ())
+        if axis_name not in names:
+            raise ValueError(f"mesh has no axis {axis_name!r} (axes {names})")
+        self.name = axis_name
+        self.n = mesh.size(names.index(axis_name))
+        self.coordinate = mesh.get_local_rank(axis_name)
+        self.group = mesh.get_group(axis_name)
+
+    def local_count(self, S):
+        """This rank's share of ``S`` samples."""
+        if S % self.n:
+            raise ValueError(f"num_mc_samples={S} must be divisible by the "
+                             f"{self.name} axis size {self.n}")
+        return S // self.n
+
+    def _reduce(self, x, op):
+        # in place: every caller passes a tensor of its own
+        x = x.detach()
+        dist.all_reduce(x, op=op, group=self.group)
+        return x
+
+    def sum(self, x):
+        return self._reduce(x, dist.ReduceOp.SUM)
+
+    def max(self, x):
+        return self._reduce(x, dist.ReduceOp.MAX)
+
+    def generator(self, generator):
+        """The generator of this rank's draws in one step: seeded from the
+        caller's generator state and this rank's coordinate (the JAX
+        package's ``fold_in(key, axis_index)``). Every rank's caller
+        generator is in the same state, so ranks draw apart and a rerun
+        draws again what it drew. The caller's generator then advances by
+        one draw, so the next step draws anew; nothing waits for the
+        device."""
+        state = generator.get_state().numpy().tobytes()
+        digest = hashlib.blake2b(state + int(self.coordinate).to_bytes(8, "little"),
+                                 digest_size=8).digest()
+        local = torch.Generator(generator.device)
+        local.manual_seed(int.from_bytes(digest, "little") >> 1)
+        torch.empty(1, device=generator.device).normal_(generator=generator)
+        return local
 
 
 class VariationalObjective:
@@ -239,6 +300,33 @@ class ExclusiveKL(StochasticVariationalObjective):
             ) from exc
         return -lower_bound, -g_rv
 
+    def mc_sharded_step(self, mesh, axis_name="mc"):
+        """The per-rank step of MC-sample data parallelism over
+        ``mesh``'s axis ``axis_name`` (the JAX package's
+        objectives.py:334-360): ``step(var_param, generator) -> (value,
+        grad)``. Each rank draws ``S / n`` samples (its own generator,
+        :meth:`_ShardAxis.generator`), evaluates its value and gradient,
+        and one all-reduce averages both; STL on a Cholesky family runs
+        kernel 2 as the unsharded step does. ``S`` is read at every step
+        and must divide."""
+        if self.hessian_approx_method is not None:
+            raise ValueError("the Hessian control-variate estimators do not support "
+                             "MC-axis sharding")
+        axis = _ShardAxis(mesh, axis_name)
+        axis.local_count(self.num_mc_samples)
+
+        def step(var_param, generator):
+            local_S = axis.local_count(self.num_mc_samples)
+            g = axis.generator(generator)
+            vp = var_param.detach().requires_grad_(True)
+            with torch.enable_grad():
+                loss = self._loss(vp, g, num_samples=local_S)
+                (grad,) = torch.autograd.grad(loss, vp)
+            packed = axis.sum(torch.cat([loss.detach().reshape(1), grad])) / axis.n
+            return packed[0], packed[1:]
+
+        return step
+
     def hessian_vector_product(self, var_param, x, generator):
         """HVP of the plain objective at one draw of the generator (reverse
         over reverse: the gradient with its graph, then its product with
@@ -334,6 +422,43 @@ class IWELBO(StochasticVariationalObjective):
         lw = model(samples) - approx.log_density(var_param, samples)
         return -(torch.logsumexp(lw, dim=0) - math.log(n))
 
+    def mc_sharded_step(self, mesh, axis_name="mc"):
+        """The per-rank step of MC-sample data parallelism (the JAX
+        package's objectives.py:417-465; see
+        :meth:`ExclusiveKL.mc_sharded_step`). The bound couples every
+        sample through one log-sum-exp: the stabilizing max is an
+        all-reduce MAX and the normalizer a SUM, both of detached
+        values; the local surrogate re-attaches this rank's terms of the
+        gradient, and the gradients are SUM-reduced. DReG and plain."""
+        axis = _ShardAxis(mesh, axis_name)
+        axis.local_count(self.num_mc_samples)
+
+        def step(var_param, generator):
+            S = self.num_mc_samples
+            local_S = axis.local_count(S)
+            g = axis.generator(generator)
+            approx, model = self.approx, self.model
+            vp = var_param.detach().requires_grad_(True)
+            with torch.enable_grad():
+                if self._use_dreg:
+                    samples, log_q = approx.sample_and_stl_log_density(vp, local_S, g)
+                    lw = model(samples) - log_q
+                else:
+                    samples = approx.sample(vp, local_S, g)
+                    lw = model(samples) - approx.log_density(vp, samples)
+                lw_s = lw.detach()
+                m = axis.max(torch.max(lw_s))
+                w = torch.exp(lw_s - m)
+                norm = axis.sum(torch.sum(w))
+                value = torch.log(norm) + m - math.log(S)
+                w_hat = w / norm
+                surrogate = torch.sum((w_hat * w_hat if self._use_dreg else w_hat) * lw)
+                loss = -(value + surrogate - surrogate.detach())
+                (grad,) = torch.autograd.grad(loss, vp)
+            return loss.detach(), axis.sum(grad)
+
+        return step
+
 
 class AlphaDivergence(StochasticVariationalObjective):
     """Log alpha-divergence / CUBO objective (reference objectives.py:419-463).
@@ -371,6 +496,35 @@ class AlphaDivergence(StochasticVariationalObjective):
             (jtw,) = torch.autograd.grad(log_weights, vp, grad_outputs=scaled)
         value = torch.log(torch.mean(scaled)) / alpha + log_norm
         return value, alpha * jtw / S
+
+    def mc_sharded_step(self, mesh, axis_name="mc"):
+        """The per-rank step of MC-sample data parallelism (the JAX
+        package's objectives.py:504-539): the MAX of the local maxima
+        scales every rank's weights alike, and one SUM carries the local
+        weight means (their mean is the value's) and the local
+        vector-Jacobian products (their sum over ``S`` is the
+        gradient)."""
+        axis = _ShardAxis(mesh, axis_name)
+        axis.local_count(self.num_mc_samples)
+
+        def step(var_param, generator):
+            approx, model = self.approx, self.model
+            S, alpha = self.num_mc_samples, self._alpha
+            local_S = axis.local_count(S)
+            g = axis.generator(generator)
+            vp = var_param.detach().requires_grad_(True)
+            with torch.enable_grad():
+                samples = approx.sample(vp, local_S, g)
+                log_weights = model(samples) - approx.log_density(vp, samples)
+                lw = log_weights.detach()
+                log_norm = axis.max(torch.max(lw))
+                scaled = torch.exp(alpha * (lw - log_norm))
+                (jtw,) = torch.autograd.grad(log_weights, vp, grad_outputs=scaled)
+            packed = axis.sum(torch.cat([torch.mean(scaled).reshape(1), jtw]))
+            value = torch.log(packed[0] / axis.n) / alpha + log_norm
+            return value, alpha * packed[1:] / S
+
+        return step
 
 
 class _MultinomialResampler:
@@ -446,31 +600,42 @@ class DISInclusiveKL(StochasticVariationalObjective):
             ltp = self._temper_log_density(samples)
         return eps * ltp + (1.0 - eps) * log_p
 
-    def _weights(self, eps, samples, log_p, log_q, ltp=None):
+    def _weights(self, eps, samples, log_p, log_q, ltp=None, axis=None):
         """Self-normalised importance weights ``exp(logw - max logw)``.
 
         A deliberate departure from the reference (objectives.py:322-331),
         kept from the JAX package: the raw ``exp(logw)`` of an
         unnormalised target underflows to all zeros in float32 already at
         d ~ 100. ESS and proportional clipping are scale-invariant, so the
-        bisection visits the same ``eps`` sequence.
+        bisection visits the same ``eps`` sequence. With ``axis`` (a
+        sharded sample axis) the max is all-reduced, so every rank's
+        weights share one scale.
         """
         logw = self._tempered_log_pdf(eps, samples, log_p, ltp) - log_q
-        return torch.exp(logw - torch.max(logw))
+        m = torch.max(logw)
+        if axis is not None:
+            m = axis.max(m)
+        return torch.exp(logw - m)
 
-    def _eps_and_weights(self, eps_guess, samples, log_p, log_q):
+    def _eps_and_weights(self, eps_guess, samples, log_p, log_q, axis=None):
         """Bisection on ``eps`` to hit the ESS target (reference 338-368):
-        ``(eps, ess, weights)``, all on the device."""
+        ``(eps, ess, weights)``, all on the device. With ``axis`` the ESS
+        sums are all-reduced (one SUM of the pair a bisection step, beside
+        the weights' MAX), so a sharded step visits the same ``eps``
+        sequence as an unsharded step on the concatenated samples."""
         ltp = self._temper_log_density(samples)
 
         def ess_of(w):
-            return torch.sum(w) ** 2 / torch.sum(w**2)
+            sums = torch.stack([torch.sum(w), torch.sum(w**2)])
+            if axis is not None:
+                sums = axis.sum(sums)
+            return sums[0] ** 2 / sums[1]
 
         lower = torch.zeros((), dtype=log_q.dtype, device=log_q.device)
         upper = torch.as_tensor(eps_guess, dtype=log_q.dtype, device=log_q.device)
         guess = (lower + upper) / 2.0
         for _ in range(self._max_bisection_its):
-            w = self._weights(guess, samples, log_p, log_q, ltp)
+            w = self._weights(guess, samples, log_p, log_q, ltp, axis)
             too_big = ess_of(w) > self._ess_target
             upper = torch.where(too_big, guess, upper)
             lower = torch.where(too_big, lower, guess)
@@ -478,41 +643,48 @@ class DISInclusiveKL(StochasticVariationalObjective):
         # endpoint handling (reference objectives.py:362-366)
         guess = torch.where(lower == 0.0, 0.0, guess)
         guess = torch.where(upper == self._max_eps, self._max_eps, guess)
-        w = self._weights(guess, samples, log_p, log_q, ltp)
+        w = self._weights(guess, samples, log_p, log_q, ltp, axis)
         return guess, ess_of(w), w
 
-    def _clip_weights(self, w):
+    def _clip_weights(self, w, axis=None):
         """Proportional weight clipping (the corrected form of reference
         370-386): no weight exceeds ``threshold`` times the total, the
         clipped mass goes to the unclipped weights in proportion, and the
         total is kept; 16 passes. A no-op for ``threshold >= 1`` (the
-        default, 10)."""
+        default, 10). With ``axis`` the totals are all-reduced."""
         tau = self._w_clip_threshold
-        if tau >= 1.0 or tau * w.shape[0] <= 1.0:
+        n = self.num_mc_samples if axis is not None else w.shape[0]
+        if tau >= 1.0 or tau * n <= 1.0:
             return w
-        total = torch.sum(w)
+
+        def gsum(*xs):
+            sums = torch.stack([torch.sum(x) for x in xs])
+            return axis.sum(sums) if axis is not None else sums
+
+        total = gsum(w)[0]
         p = w / total
         for _ in range(16):
             over = p > tau
-            excess = torch.sum(torch.where(over, p - tau, 0.0))
-            keep = torch.sum(torch.where(over, 0.0, p))
+            excess, keep = gsum(torch.where(over, p - tau, 0.0), torch.where(over, 0.0, p))
             scale = torch.where(keep > 0, 1.0 + excess / keep, 1.0)
             p = torch.where(over, tau, p * scale)
         return p * total
 
-    def _refresh(self, var_param, generator, eps_guess):
+    def _refresh(self, var_param, generator, eps_guess, num_samples=None, axis=None):
         """Draw samples, bisect ``eps``, clip the weights (reference
         392-398): ``(samples, log_q, w_clipped, eps)``. The samples, the
         model and the weights carry no graph; ``log_q`` carries one where
-        the caller records it."""
-        S = self.num_mc_samples
+        the caller records it. A sharded step draws its ``num_samples``
+        and reduces over ``axis``."""
+        S = num_samples or self.num_mc_samples
         with torch.no_grad():
             samples = self.approx.sample(var_param.detach(), S, generator)
             log_p = self.model(samples)
         log_q = self.approx.log_density(var_param, samples)
         with torch.no_grad():
-            eps, _, w = self._eps_and_weights(eps_guess, samples, log_p, log_q.detach())
-            w_clipped = self._clip_weights(w)
+            eps, _, w = self._eps_and_weights(eps_guess, samples, log_p, log_q.detach(),
+                                              axis)
+            w_clipped = self._clip_weights(w, axis)
         return samples, log_q, w_clipped, eps
 
     @staticmethod
@@ -598,6 +770,67 @@ class DISInclusiveKL(StochasticVariationalObjective):
         fresh["eps"] = obj_state["eps"]
         fresh["ok"] = obj_state["ok"]
         return fresh
+
+    def mc_sharded_step_with_state(self, mesh, axis_name="mc"):
+        """The per-rank stateful step of MC-sample data parallelism (the
+        JAX package's objectives.py:851-897): ``step(var_param, generator,
+        state) -> (value, grad, state)``. Only without resampling: the
+        resampling draw is a categorical over every rank's weights. The
+        weights' scale, the bisection's ESS sums and the clip totals are
+        all-reduced, so the step visits the same ``eps`` sequence and loss
+        as an unsharded step on the concatenated samples; one more SUM
+        carries the value, the weight mass and the gradient."""
+        if self._use_resampling:
+            raise ValueError(
+                "MC-axis sharding supports DIS with use_resampling=False only (the "
+                "resampling draw is a global categorical over every shard's weights)")
+        axis = _ShardAxis(mesh, axis_name)
+        axis.local_count(self.num_mc_samples)
+
+        def step(var_param, generator, state):
+            S = self.num_mc_samples
+            local_S = axis.local_count(S)
+            g = axis.generator(generator)
+            vp = var_param.detach().requires_grad_(True)
+            with torch.enable_grad():
+                _, log_q, w_clipped, eps = self._refresh(vp, g, state["eps"],
+                                                         num_samples=local_S, axis=axis)
+                loss = -torch.dot(w_clipped, log_q) / S
+                (grad,) = torch.autograd.grad(loss, vp)
+            packed = axis.sum(torch.cat([loss.detach().reshape(1),
+                                         torch.sum(w_clipped).reshape(1), grad]))
+            ok = self._ok(state, packed[1])
+            return packed[0], packed[2:], {"eps": eps, "step": state["step"] + 1, "ok": ok}
+
+        return step
+
+    def reset_obj_state_rows(self, obj_states, idx):
+        """The states of restarts ``idx`` set back to a fresh round's, the
+        others left running (the async ``multistart_raabbvi``'s round
+        reset; the JAX package's objectives.py:810-849). ``obj_states``
+        holds one state dict a restart; returns the new list.
+
+        A reset restart's ``eps`` becomes ``max_eps`` and its ``ok`` True.
+        With resampling, the JAX package keeps one refresh clock
+        (``step``) for the whole batch and zeroes it, so the next step
+        refreshes every restart's sample cache, not only the reset one's:
+        the reset restart's first step is a fresh round's (its stale cache
+        is overwritten before it is read), the others refresh once early.
+        The port keeps a clock a restart and zeroes every one of them, to
+        step as the JAX package does. Without resampling the clock is
+        inert and stays.
+        """
+        idx = {int(b) for b in idx}
+        out = []
+        for b, state in enumerate(obj_states):
+            state = dict(state)
+            if b in idx:
+                state["eps"] = torch.full_like(state["eps"], self._max_eps)
+                state["ok"] = torch.ones_like(state["ok"])
+            if self._use_resampling:
+                state["step"] = torch.zeros_like(state["step"])
+            out.append(state)
+        return out
 
     def value_and_grad(self, var_param, generator):
         """Direct calls: the state is mirrored on the object and checked

@@ -69,6 +69,10 @@ class StochasticGradientOptimizer(Optimizer):
         """Pure step rule: ``(grad, state) -> (descent_dir, new_state)``."""
         return grad, state
 
+    def reset_state(self):
+        """Kept for API parity with the JAX package; the state is explicit,
+        so there is nothing to reset."""
+
     def step(self, objective, var_param, state, obj_state, generator, learning_rate):
         """One step: ``(var_param, state, obj_state, value, direction,
         grad)``."""

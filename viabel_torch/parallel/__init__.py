@@ -1,19 +1,21 @@
-"""Multistart engines (counterpart of ``viabel_tpu/parallel``).
+"""Multistart engines and MC-sample data parallelism (counterpart of
+``viabel_tpu/parallel``).
 
-The single-device engines are ported: :func:`multistart_optimize`,
-:func:`multistart_faso` and the lockstep :func:`multistart_raabbvi`. The
-distributed ones (``make_mesh``, ``distributed_init``,
-``ShardedExclusiveKL``, ``shard_mc_objective``, ``FSDPFullRankELBO``)
-raise ``NotImplementedError`` pointing at ROADMAP.md.
+Ported: the single-device multistart engines (:func:`multistart_optimize`,
+:func:`multistart_faso`, :func:`multistart_raabbvi` on the lockstep and the
+async schedule) and the MC-sample axis over ``torch.distributed``
+(:func:`make_mesh`, :func:`distributed_init`, :class:`ShardedExclusiveKL`,
+:func:`shard_mc_objective`). ``FSDPFullRankELBO`` and every engine's
+``mesh=`` raise ``NotImplementedError`` pointing at ROADMAP.md.
 """
 
 from ..utils import deferred_names
+from .mesh import distributed_init, make_mesh
 from .multistart import multistart_faso
 from .raabbvi import multistart_raabbvi
-from .sharded import multistart_optimize
+from .sharded import ShardedExclusiveKL, multistart_optimize, shard_mc_objective
 
-__all__ = ["multistart_optimize", "multistart_faso", "multistart_raabbvi"]
+__all__ = ["make_mesh", "distributed_init", "ShardedExclusiveKL", "shard_mc_objective",
+           "multistart_optimize", "multistart_faso", "multistart_raabbvi"]
 
-__getattr__ = deferred_names(__name__, {name: "13b" for name in (
-    "make_mesh", "distributed_init", "ShardedExclusiveKL", "shard_mc_objective",
-    "FSDPFullRankELBO")})
+__getattr__ = deferred_names(__name__, {"FSDPFullRankELBO": "13b"})

@@ -94,13 +94,12 @@ class _BatchedEngine:
         grads = [[] for _ in range(B)] if self.diagnostics else None
         dirs = [[] for _ in range(B)] if self.diagnostics else None
         for _ in range(steps):
-            slot = run.t % R
             for b in range(B):
                 (run.var_params[b], run.opt_states[b], run.obj_states[b], value,
                  direction, grad) = sgo.step(objective, run.var_params[b],
                                              run.opt_states[b], run.obj_states[b],
                                              run.generators[b], float(run.lr[b]))
-                run.rings[b][slot] = run.var_params[b]
+                run.rings[b][(run.t - run.origins[b]) % R] = run.var_params[b]
                 values[b].append(value)
                 if self.diagnostics:
                     grads[b].append(grad)
@@ -112,21 +111,31 @@ class _BatchedEngine:
         return (out, torch.stack([torch.stack(g) for g in grads]).cpu().numpy(),
                 torch.stack([torch.stack(d) for d in dirs]).cpu().numpy())
 
+    def rhat_one(self, ring, t, windows):
+        """``(K,)`` split-R-hat statistics of one ring whose clock reads
+        ``t`` (or above-threshold counts in quantile mode)."""
+        return split_rhat_ring_windows(ring, t, windows, self.G,
+                                       exceed_threshold=self._exceed)
+
+    def mean_one(self, ring, t, w):
+        """``(D,)`` mean of one ring's last ``w`` iterates."""
+        return ring_window_mean(ring, t, int(w), self.G)
+
+    def mcse_one(self, ring, t, w):
+        """``(D,)`` windowed ESS and MCSE of one ring (device tensors)."""
+        return _mcse_check(ring, t, int(w), self.mf_dim)
+
     def rhats(self, rings, t, windows):
-        """``(B, K)`` split-R-hat statistics (or above-threshold counts in
-        quantile mode), one ring at a time."""
-        return torch.stack([split_rhat_ring_windows(ring, t, windows, self.G,
-                                                    exceed_threshold=self._exceed)
-                            for ring in rings])
+        """``(B, K)`` split-R-hat statistics, one ring at a time."""
+        return torch.stack([self.rhat_one(ring, t, windows) for ring in rings])
 
     def means(self, rings, t, ws):
         """``(B, D)`` means of each ring's last ``ws[b]`` iterates."""
-        return torch.stack([ring_window_mean(ring, t, int(w), self.G)
-                            for ring, w in zip(rings, ws)])
+        return torch.stack([self.mean_one(ring, t, w) for ring, w in zip(rings, ws)])
 
     def mcses(self, rings, t, ws):
         """``(B, D)`` host arrays of windowed ESS and MCSE per ring."""
-        pairs = [_mcse_check(ring, t, int(w), self.mf_dim) for ring, w in zip(rings, ws)]
+        pairs = [self.mcse_one(ring, t, w) for ring, w in zip(rings, ws)]
         return (torch.stack([p[0] for p in pairs]).cpu().numpy(),
                 torch.stack([p[1] for p in pairs]).cpu().numpy())
 
@@ -160,11 +169,16 @@ class _BatchedEngine:
 class _RunState:
     """The per-restart tensors a segment advances: parameters, step-rule
     and objective states, generators, rings, learning rates, and the
-    shared step counter ``t``."""
+    shared step counter ``t``. Restart ``b`` writes step ``t`` to its
+    ring's slot ``(t - origins[b]) % R``: its ring clock starts at
+    ``origins[b]`` (0 here; the async ``multistart_raabbvi`` restarts a
+    restart's clock with each of its rounds)."""
 
-    def __init__(self, var_params, opt_states, obj_states, generators, rings, lr, t):
+    def __init__(self, var_params, opt_states, obj_states, generators, rings, lr, t,
+                 origins=None):
         self.var_params, self.opt_states, self.obj_states = var_params, opt_states, obj_states
         self.generators, self.rings, self.lr, self.t = generators, rings, lr, t
+        self.origins = [0] * len(var_params) if origins is None else origins
 
 
 def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
@@ -404,6 +418,7 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
             stats.append(tr[-1])
         new_S = min(int(np.ceil(objective.num_mc_samples * mc_escalation)), mc_max)
         objective.num_mc_samples = new_S
+        new_S = int(objective.num_mc_samples)  # as rounded by a sharded objective
         if stateful:
             run.obj_states = engine.resize_obj_states(run.obj_states, run.var_params)
         mc_escalated_at = k
