@@ -18,7 +18,12 @@ restart selection in float64 against the CPU; then multistart RAABBVI on
 the lockstep and the async schedule side by side, the async schedule in
 float64 against the CPU, and the Monte Carlo sample axis over a one-rank
 NCCL group (each sharded objective's step against its unsharded step, and
-a FASO run).
+a FASO run); then the engines sharded over the ranks of a one-rank NCCL
+group each: FASO with its ring's columns split (against the unsharded
+run, and kernel 1 on each coordinate shard of the flagship ring),
+multistart_faso and the async multistart_raabbvi with their restarts
+split, multipath_pathfinder with its paths split, and a sharded FASO run
+written with save_pytree_orbax, read back and resumed.
 
     python3 chip_smoke.py
 
@@ -115,6 +120,11 @@ MSAF_DETECTION = dict(MS_DETECTION, W_min=25, max_history=200)
 #: [mc_sharded]: a one-rank NCCL group on the card; f32 agreement of each
 #: sharded step with its unsharded step on the same draws, and the FASO run
 MC_RTOL, MC_FASO_ITERS = 1e-6, 1000
+#: [faso_sharded] and [dcp]: FASO steps a run (the [dcp] run stops halfway)
+#: on the flagship with a 600-row ring; kernel 1 on the flagship ring split
+#: into FS_SHARDS coordinate shards of FS_GROUP-row groups
+FS_ITERS, FS_RING_ROWS, FS_SHARDS, FS_GROUP = 1000, 600, 4, 50
+PFS_PATHS = 4  # [pathfinder_sharded]: paths at [pathfinder]'s d, L and J
 #: NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, and FLOP/s outside the
 #: tensor cores by element type
 PEAK_BYTES_PER_S = 3.35e12
@@ -268,6 +278,37 @@ def phase_stl(results):
                 results["stl_transpose_solve"] = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
                     "library_ms": library_ms}
+
+
+class FixedCostTimer:
+    """The MCSE check's timer at a fixed negligible cost: the recheck
+    schedule then reads no clock, and two runs take the same decisions."""
+
+    interval = 1e-9
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+class fixed_mcse_cost:
+    """FixedCostTimer in FASO and in the multistart engines while inside."""
+
+    def __enter__(self):
+        import viabel_torch.faso as faso
+        import viabel_torch.parallel.multistart as multistart
+        import viabel_torch.parallel.raabbvi as raabbvi
+        self.saved = [(m, m.Timer) for m in (faso, multistart, raabbvi)]
+        for m, _ in self.saved:
+            m.Timer = FixedCostTimer
+        return self
+
+    def __exit__(self, *exc):
+        for m, timer in self.saved:
+            m.Timer = timer
+        return False
 
 
 def phase_main_path(counts):
@@ -1532,17 +1573,6 @@ def phase_multistart_f64():
     from viabel_torch.parallel import multistart_faso, multistart_optimize
     import viabel_torch.parallel.multistart as engine
 
-    class FixedCostTimer:
-        """One MCSE-check cost for both sides: the recheck schedule reads
-        the wall clock, which differs between the card and the CPU."""
-        interval = 1e-9
-
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *exc):
-            return False
-
     d, B = FLAGSHIP_DIM, MSF_RESTARTS
     table = torch.randn((B * 10 * (MSF_FASO_ITERS + MSF_OPT_ITERS) + 1000, d),
                         generator=torch.Generator().manual_seed(63), dtype=torch.float64)
@@ -1717,15 +1747,6 @@ def phase_multistart_async_f64():
     from viabel_torch.parallel import multistart_raabbvi
     import viabel_torch.parallel.raabbvi as async_schedule
 
-    class FixedCostTimer:
-        interval = 1e-9
-
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *exc):
-            return False
-
     d, B = FLAGSHIP_DIM, len(MSAF_LR)
     table = torch.randn((B * 10 * (MSAF_ITERS + 50), d),
                         generator=torch.Generator().manual_seed(72), dtype=torch.float64)
@@ -1896,10 +1917,329 @@ def phase_mc_sharded(path_launches, main_steps_per_s):
     torch.cuda.empty_cache()
 
 
+class one_rank_group:
+    """A one-rank NCCL group on a free 127.0.0.1 port (NCCL takes one rank
+    a card) and a mesh of one rank on each of ``axes``; the group is torn
+    down on leaving."""
+
+    def __init__(self, *axes):
+        self.axes = axes
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from viabel_torch.parallel import distributed_init, make_mesh
+        distributed_init(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                         device_type=DEVICE)
+        mesh = make_mesh((1,) * len(self.axes), self.axes, device_type=DEVICE)
+        log(f"[group] backend={dist.get_backend()} world_size={dist.get_world_size()} "
+            f"mesh={mesh}")
+        return mesh
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        return False
+
+
+def faso_summary(res):
+    """What two FASO runs must share to the bit."""
+    return {"opt_param": res["opt_param"], "k_conv": res["k_conv"],
+            "k_Rhat": res["k_Rhat"], "k_stopped": res["k_stopped"],
+            "rhat_verdicts": res["rhat_verdicts"]}
+
+
+def same_faso(tag, a, b):
+    for name in ("k_conv", "k_Rhat", "k_stopped", "rhat_verdicts"):
+        if a[name] != b[name]:
+            raise AssertionError(f"{tag} {name}: {a[name]} against {b[name]}")
+    if not torch.equal(a["opt_param"], b["opt_param"]):
+        raise AssertionError(f"{tag} opt_param differs: max abs "
+                             f"{float((a['opt_param'] - b['opt_param']).abs().max())}")
+
+
+def sharded_faso(mesh, n_iters, ring_mesh=None, resume_state=None):
+    """FASO on the flagship (FullRankGaussian(1000), f32, STL, S = 10) under
+    ShardedExclusiveKL on ``mesh``'s mc axis, its 600-row ring split over
+    the mc axis of ``ring_mesh`` (None: whole)."""
+    import viabel_torch as vt
+    from viabel_torch.parallel import ShardedExclusiveKL
+    objective = ShardedExclusiveKL(
+        vt.FullRankGaussian(FLAGSHIP_DIM, device=DEVICE, dtype=torch.float32),
+        flagship_model(), 10, mesh, use_path_deriv=True)
+    faso = vt.FASO(vt.RMSProp(FLAGSHIP_LR), max_history=FS_RING_ROWS, mesh=ring_mesh,
+                   shard_axis="mc")
+    return timed_run(lambda: faso.optimize(
+        n_iters, objective, objective.approx.init_param(),
+        generator=torch.Generator(DEVICE).manual_seed(90), resume_state=resume_state))
+
+
+def phase_faso_sharded(path_launches):
+    """FASO(mesh=..., shard_axis="mc") against FASO without a mesh on the
+    same sharded flagship objective and seed, 1,000 steps each, in the order
+    sharded, unsharded, unsharded, sharded: every result to the bit. Then
+    the flagship ring (600, 1,001,000) f32 split into four coordinate
+    shards by column_split: kernel 1 on each contiguous shard against its
+    plain version, the shards' outputs concatenated against kernel 1 on
+    the whole ring to the bit, each shard timed beside the even
+    250,250-column split (not a multiple of 4 columns: the scalar path).
+    Returns the first sharded run's results, the uninterrupted run of
+    [dcp]."""
+    from viabel_torch.ops import ring_group_stats, ring_group_stats_plain
+    from viabel_torch.parallel.mesh import column_split
+    runs = []
+    with one_rank_group("mc") as mesh, fixed_mcse_cost():
+        for sharded in (True, False, False, True):
+            tag = "[faso_sharded] [sharded]" if sharded else "[faso_sharded] [unsharded]"
+            torch.cuda.reset_peak_memory_stats()
+            res, wall, launches = sharded_faso(mesh, FS_ITERS,
+                                               ring_mesh=mesh if sharded else None)
+            steps = report_run(tag, res, wall, launches)
+            log(f"{tag} steps_per_s={steps / wall:.2f} kernel1_launches="
+                f"{launches['ring_group_stats']} ring_columns="
+                f"{res['resume_state'].get('ring_columns', 'whole')} "
+                f"max_memory_allocated_bytes={torch.cuda.max_memory_allocated()}")
+            if launches["stl_transpose_solve"] != steps or launches["ring_group_stats"] <= 0:
+                raise AssertionError(f"{tag} launches {launches} in {steps} steps")
+            if sharded and "faso_sharded" not in path_launches:
+                path_launches["faso_sharded"] = launches
+            runs.append(faso_summary(res))
+            del res
+            torch.cuda.empty_cache()
+    for other in runs[1:]:
+        same_faso("[faso_sharded]", runs[0], other)
+    log(f"[faso_sharded] sharded == unsharded to the bit over {len(runs)} runs: "
+        f"k_conv={runs[0]['k_conv']} k_stopped={runs[0]['k_stopped']} "
+        f"verdicts={len(runs[0]['rhat_verdicts'])}")
+
+    D = FLAGSHIP_DIM + FLAGSHIP_DIM ** 2
+    R, G, dtype = FS_RING_ROWS, FS_GROUP, torch.float32
+    ring = torch.randn((R, D), generator=torch.Generator(DEVICE).manual_seed(91),
+                       device=DEVICE, dtype=dtype)
+    ring += 10.0
+    center = ring[R - 1].contiguous()
+    whole = ring_group_stats(ring, center, G)
+    bounds = column_split(D, FS_SHARDS, dtype)
+    naive = [i * (D // FS_SHARDS) for i in range(FS_SHARDS)] + [D]
+    parts, size = [], ring.element_size()
+    for i in range(FS_SHARDS):
+        c0, c1 = bounds[i], bounds[i + 1]
+        shard, c = ring[:, c0:c1].contiguous(), center[c0:c1].contiguous()
+        GS, GQ = ring_group_stats(shard, c, G)
+        PS, PQ = ring_group_stats_plain(shard, c, G)
+        scale = float((shard - c).abs().max())
+        err = max(float((GS - PS).abs().max()), float((GQ - PQ).abs().max()) / scale)
+        if not err <= 1e-5 * G * scale:
+            raise AssertionError(f"[faso_sharded] kernel 1 on shard {i}: err {err}")
+        parts.append((GS, GQ))
+        ms = cuda_ms(lambda: ring_group_stats(shard, c, G))
+        plain_ms = cuda_ms(lambda: ring_group_stats_plain(shard, c, G))
+        b = bound((R * (c1 - c0) + (c1 - c0) + 2 * (R // G) * (c1 - c0)) * size,
+                  4 * R * (c1 - c0), dtype)
+        n0, n1 = naive[i], naive[i + 1]
+        nshard, nc = ring[:, n0:n1].contiguous(), center[n0:n1].contiguous()
+        naive_ms = cuda_ms(lambda: ring_group_stats(nshard, nc, G))
+        log(f"[faso_sharded] kernel 1 shard {i} columns [{c0}, {c1}) ({c1 - c0} = "
+            f"{(c1 - c0) % 4 == 0 and 'a multiple of 4' or 'not a multiple of 4'}): "
+            f"max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']}) | even split [{n0}, {n1}) "
+            f"({n1 - n0} columns, scalar path) kernel_ms={naive_ms:.4f}")
+        del shard, nshard
+    for j, name in enumerate(("GS", "GQ")):
+        if not torch.equal(torch.cat([p[j] for p in parts], dim=1), whole[j]):
+            raise AssertionError(f"[faso_sharded] the shards' {name} differ from the whole "
+                                 "ring's")
+    log(f"[faso_sharded] kernel 1 on {FS_SHARDS} shards {bounds} == kernel 1 on the whole "
+        f"({R}, {D}) ring, to the bit")
+    del ring, center, whole, parts
+    torch.cuda.empty_cache()
+    return runs[0]
+
+
+def phase_dcp(path_launches, uninterrupted):
+    """The [faso_sharded] run stopped halfway, its resume state (its ring
+    shard, one rank) written with save_pytree_orbax, read back with the
+    state as the template and resumed to the end: equal to the
+    uninterrupted run, as [resume] holds it. Bytes and seconds of the save
+    and the load."""
+    from viabel_torch.checkpoint import load_pytree_orbax, save_pytree_orbax
+    with one_rank_group("mc") as mesh, fixed_mcse_cost():
+        part, wall, launches = sharded_faso(mesh, FS_ITERS // 2, ring_mesh=mesh)
+        report_run("[dcp] [part]", part, wall, launches)
+        rs = part["resume_state"]
+        log(f"[dcp] [part] pending_checks={[ck['k'] for ck in rs['pending_checks']]} "
+            f"ring={tuple(rs['ring'].shape)} ring_columns={rs['ring_columns']}")
+        del part
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "faso_dcp")
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            save_pytree_orbax(path, rs)
+            save_s = time.perf_counter() - start
+            nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+            files = sorted(os.listdir(path))
+            start = time.perf_counter()
+            restored = load_pytree_orbax(path, like=rs)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - start
+        log(f"[dcp] save_seconds={save_s:.3f} load_seconds={load_s:.3f} bytes={nbytes} "
+            f"files={files}")
+        if not torch.equal(restored["ring"], rs["ring"]):
+            raise AssertionError("[dcp] the ring shard did not come back")
+        del rs
+        torch.cuda.empty_cache()
+        resumed, wall, launches = sharded_faso(mesh, FS_ITERS, ring_mesh=mesh,
+                                               resume_state=restored)
+        report_run("[dcp] [resumed]", resumed, wall, launches)
+        path_launches["dcp"] = launches
+        if launches["ring_group_stats"] <= 0:
+            raise AssertionError("[dcp] the resumed run ran no R-hat check")
+        got = faso_summary(resumed)
+        del resumed, restored
+    keys = ("k_conv", "k_Rhat", "k_stopped")
+    rel = max_rel_err(got["opt_param"], uninterrupted["opt_param"].cpu())
+    log(f"[dcp] resumed k_conv/k_Rhat/k_stopped={[got[k] for k in keys]} uninterrupted="
+        f"{[uninterrupted[k] for k in keys]} opt_param maxnorm_rel_err={rel:.3e} "
+        f"bit_equal={torch.equal(got['opt_param'], uninterrupted['opt_param'])}")
+    tail = uninterrupted["rhat_verdicts"][-len(got["rhat_verdicts"]):] \
+        if got["rhat_verdicts"] else []
+    if ([got[k] for k in keys] != [uninterrupted[k] for k in keys] or not rel <= 1e-6
+            or tail != got["rhat_verdicts"]):
+        raise AssertionError(f"[dcp] the resumed run differs: rel err {rel}")
+
+
+def phase_multistart_sharded(path_launches):
+    """multistart_faso with its restarts split over a one-rank restart axis
+    at [multistart]'s configuration (B = 4, FullRankGaussian(1000), STL,
+    S = 10, lr 0.001, MS_DETECTION, a 600-row ring a restart, 200 steps)
+    against the unsharded run, in the order sharded, unsharded, unsharded,
+    sharded (the first run meets the group's first collectives), and the
+    async multistart_raabbvi split the
+    same way at [multistart_async_f64]'s setting (float64, B = 2 on an lr
+    grid, draws from one table, the regression stubbed) against its
+    unsharded run: every decision and optimum to the bit."""
+    import viabel_torch as vt
+    from viabel_torch.parallel import multistart_faso, multistart_raabbvi
+    d, B = FLAGSHIP_DIM, MS_RESTARTS
+    launches_total = {}
+    with one_rank_group("restart") as mesh, fixed_mcse_cost():
+        approx = vt.FullRankGaussian(d, device=DEVICE, dtype=torch.float32)
+        objective = vt.ExclusiveKL(approx, flagship_model(), 10, use_path_deriv=True)
+        x0 = approx.init_param()[None].repeat(B, 1)
+        x0[1:] += MS_JITTER * torch.randn(x0[1:].shape, device=DEVICE,
+                                          generator=torch.Generator(DEVICE).manual_seed(92))
+        settings = dict(MS_DETECTION, max_history=600)
+        out = {}
+        for sharded in (True, False, False, True):
+            torch.cuda.reset_peak_memory_stats()
+            res, wall, launches = timed_run(lambda: multistart_faso(
+                vt.RMSProp(FLAGSHIP_LR), MS_ITERS, objective, x0,
+                torch.Generator(DEVICE).manual_seed(93), mesh=mesh if sharded else None,
+                **settings))
+            tag = "sharded" if sharded else "unsharded"
+            steps = int(res["value_history"].shape[1])
+            log(f"[multistart_sharded] [faso] [{tag}] k_conv={res['k_conv']} "
+                f"k_stopped={res['k_stopped']} lockstep_steps={steps} wall_s={wall:.3f} "
+                f"lockstep_steps_per_s={steps / wall:.2f} launches={launches} "
+                f"max_memory_allocated_bytes={torch.cuda.max_memory_allocated()}")
+            if launches["stl_transpose_solve"] != B * steps or launches["ring_group_stats"] <= 0:
+                raise AssertionError(f"[multistart_sharded] [faso] launches {launches}")
+            if sharded and not launches_total:
+                launches_total = dict(launches)
+            summary = {k: res[k] for k in ("opt_param", "final_param", "value_history",
+                                           "k_conv", "k_Rhat", "k_stopped")}
+            for name, value in out.get("first", summary).items():
+                same = (torch.equal(value, summary[name]) if torch.is_tensor(value)
+                        else value == summary[name])
+                if not same:
+                    raise AssertionError(f"[multistart_sharded] [faso] {name} differs")
+            out.setdefault("first", summary)
+            del res, summary
+            torch.cuda.empty_cache()
+        del objective, approx, out
+        torch.cuda.empty_cache()
+
+        B2 = len(MSAF_LR)
+        table = torch.randn((B2 * 10 * (MSAF_ITERS + 50), d),
+                            generator=torch.Generator().manual_seed(94), dtype=torch.float64)
+        jitter = 0.01 * torch.randn((B2, d + d * d), dtype=torch.float64,
+                                    generator=torch.Generator().manual_seed(95))
+        regression = vt.RAABBVI.weighted_linear_regression
+        vt.RAABBVI.weighted_linear_regression = lambda self, *a, **k: (None, 0.6, 0.8)
+        runs = {}
+        try:
+            for sharded in (True, False):
+                sampler = StreamTable(table)
+                approx = vt.FullRankGaussian(d, base_sampler=sampler, device=DEVICE,
+                                             dtype=torch.float64)
+                objective = vt.ExclusiveKL(approx, flagship_model(dtype=torch.float64), 10,
+                                           use_path_deriv=True)
+                res, wall, launches = timed_run(lambda: multistart_raabbvi(
+                    vt.RMSProp(FLAGSHIP_LR), MSAF_ITERS, objective,
+                    approx.init_param() + jitter.to(DEVICE), schedule="async",
+                    verbose=False, learning_rate=np.asarray(MSAF_LR),
+                    mesh=mesh if sharded else None, **MSAF_DETECTION))
+                tag = "sharded" if sharded else "unsharded"
+                log(f"[multistart_sharded] [async_f64] [{tag}] k_stopped_final="
+                    f"{res['k_stopped_final']} n_rounds_per_restart="
+                    f"{res['n_rounds_per_restart']} k_global_steps={res['k_global_steps']} "
+                    f"wall_s={wall:.3f} draws={sampler.pos} launches={launches}")
+                if sharded:
+                    for name, count in launches.items():
+                        launches_total[name] = launches_total.get(name, 0) + count
+                runs[tag] = res
+                del objective, approx
+        finally:
+            vt.RAABBVI.weighted_linear_regression = regression
+    a, b = runs["sharded"], runs["unsharded"]
+    for name in ("k_stopped_final", "n_rounds_per_restart", "k_global_steps", "k_total",
+                 "conv_iters_hist", "budget_overrun", "learning_rate_hist", "SKL_history"):
+        if a[name] != b[name]:
+            raise AssertionError(f"[multistart_sharded] [async_f64] {name}: {a[name]} "
+                                 f"against {b[name]}")
+    if not torch.equal(a["opt_param"], b["opt_param"]):
+        raise AssertionError("[multistart_sharded] [async_f64] opt_param differs")
+    log("[multistart_sharded] sharded == unsharded to the bit: multistart_faso and the "
+        "async multistart_raabbvi")
+    path_launches["multistart_sharded"] = launches_total
+    del runs, a, b
+    torch.cuda.empty_cache()
+
+
+def phase_pathfinder_sharded():
+    """multipath_pathfinder with PFS_PATHS paths split over a one-rank path
+    axis at [pathfinder]'s configuration (the flagship model, d = 1000,
+    L = 60, J = 6) against the unsharded run, then timed."""
+    import viabel_torch as vt
+    d, M, model = FLAGSHIP_DIM, PFS_PATHS, flagship_model()
+    x0 = 2.0 * torch.randn((M, d), generator=torch.Generator(DEVICE).manual_seed(96),
+                           device=DEVICE)
+    pf = dict(max_iters=PF_ITERS, history=PF_HISTORY)
+    with one_rank_group("paths") as mesh:
+        def run(sharded):
+            return vt.multipath_pathfinder(model, x0, torch.Generator(DEVICE).manual_seed(97),
+                                           mesh=mesh if sharded else None, **pf)
+
+        got, want = run(True), run(False)
+        for name in ("samples", "log_weights", "pool_samples", "pool_log_p", "pool_log_q",
+                     "elbo", "best_l", "khat"):
+            if not torch.equal(torch.as_tensor(got[name]), torch.as_tensor(want[name])):
+                raise AssertionError(f"[pathfinder_sharded] {name} differs")
+        if not torch.isfinite(got["samples"]).all():
+            raise AssertionError("[pathfinder_sharded] non-finite draws")
+        ms = cuda_ms(lambda: run(True), reps=3, warmup=1)
+        plain_ms = cuda_ms(lambda: run(False), reps=3, warmup=1)
+    log(f"[pathfinder_sharded] M={M} d={d} L={PF_ITERS} J={PF_HISTORY}: sharded == "
+        f"unsharded to the bit; khat={float(got['khat']):.4f} "
+        f"best_l={got['best_l'].tolist()} sharded_ms={ms:.3f} ({ms / M:.3f} per path) "
+        f"unsharded_ms={plain_ms:.3f} ({plain_ms / M:.3f} per path)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -1948,6 +2288,12 @@ def main():
     phase_multistart_async(path_launches)
     phase_multistart_async_f64()
     phase_mc_sharded(path_launches, main_steps_per_s)
+    start = time.perf_counter()
+    uninterrupted = phase_faso_sharded(path_launches)
+    phase_dcp(path_launches, uninterrupted)
+    phase_multistart_sharded(path_launches)
+    phase_pathfinder_sharded()
+    log(f"[sharded] the four sharded phases took {time.perf_counter() - start:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         # the main path's launches and those of this slice's paths, each
@@ -1961,6 +2307,7 @@ def main():
         kernels.append(entry)
     if not all(math.isfinite(k["ms"]) and math.isfinite(k["bound_ms"]) for k in kernels):
         raise AssertionError("a kernel was not timed")
+    log(f"[total] seconds={time.perf_counter() - started:.1f}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

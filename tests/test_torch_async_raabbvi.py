@@ -336,7 +336,7 @@ def test_async_warm_prelude_budget_exhaustion_books_the_lr(async_clocks, fixed_r
 
 def test_async_raabbvi_validation():
     """JAX's ValueErrors for a stateful objective without the row reset
-    and a bad schedule; the mesh stays a 13b route. Departure: with an
+    and a bad schedule, and for a mesh without the restart axis. Departure: with an
     explicit mc_max_samples on an objective without num_mc_samples the
     JAX package's async leg raises a bare AttributeError, the port the
     ValueError of its lockstep leg."""
@@ -361,8 +361,9 @@ def test_async_raabbvi_validation():
     obj = vt.ExclusiveKL(vt.MFGaussian(2, **F64), model, 2)
     with pytest.raises(ValueError, match='"schedule"'):
         multistart_raabbvi(vt.RMSProp(0.05), 100, obj, x0, schedule="bogus")
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        multistart_raabbvi(vt.RMSProp(0.05), 100, obj, x0, schedule="async", mesh=object())
+    with pytest.raises(ValueError, match="no 'restart' axis"):
+        multistart_raabbvi(vt.RMSProp(0.05), 100, obj, x0, schedule="async",
+                           mesh=type("MCMesh", (), {"mesh_dim_names": ("mc",)})())
 
     class NoS:
         approx = vj.MFGaussian(2)

@@ -351,38 +351,95 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+@pytest.mark.parametrize("route", ["FSDPFullRankELBO"])
+def test_deferred_routes_raise_with_a_roadmap_pointer(route):
+    """What is left of item 13b raises, pointing at ROADMAP.md:
+    FSDPFullRankELBO. The sharded engines and the Orbax pair run
+    (tests/test_torch_faso_sharded.py, tests/test_torch_multistart_sharded.py,
+    tests/test_torch_dcp.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 13b"):
+        getattr(vt.parallel, route)
+
+
+class XMesh:
+    """A two-rank stand-in mesh whose only axis is ``x``."""
+
+    mesh_dim_names = ("x",)
+
+    def size(self, dim=None):
+        return 2
+
+    def get_local_rank(self, name=None):
+        return 0
+
+    def get_group(self, name=None):
+        return None
+
+
 @pytest.mark.parametrize("route", [
-    "bbvi_mesh", "FSDPFullRankELBO", "multistart_optimize_mc_axis", "multistart_faso_mesh",
+    "bbvi_mesh", "multistart_optimize_mc_axis", "multistart_faso_mesh",
     "multistart_raabbvi_mesh", "FASO_mesh", "multipath_pathfinder_mesh",
     "save_pytree_orbax"])
-def test_deferred_routes_raise_with_a_roadmap_pointer(route):
-    """What is left of item 13b raises, pointing at ROADMAP.md: every
-    engine's mesh (bbvi's multistart, multistart_optimize's mc_axis,
-    multistart_faso, multistart_raabbvi, FASO, multipath_pathfinder),
-    FSDPFullRankELBO and the Orbax pair. The single-device multistart
-    routes, the async schedule and the MC-sample axis run
-    (tests/test_torch_multistart*.py, tests/test_torch_async_raabbvi.py,
-    tests/test_torch_mc_sharded.py)."""
-    model, dim = vt.zoo.funnel()
+def test_sharded_routes_reject_a_bad_mesh_as_jax_does(route, tmp_path):
+    """The routes item 13b deferred now run, and each rejects a mesh
+    without the axis it shards over with the JAX package's exception (the
+    JAX side on a jax.sharding.Mesh of two CPU devices with the one axis
+    ``x``); the Orbax pair rejects a template of another shape, as a load
+    onto another mesh shape meets it."""
+    from viabel_tpu.checkpoint import load_pytree_orbax as j_load
+    from viabel_tpu.checkpoint import save_pytree_orbax as j_save
+    jmesh = jax.sharding.Mesh(np.asarray(jax.devices()[:2]), ("x",))
+    key = jax.random.PRNGKey(0)
+    model_j, dim = vj.zoo.funnel()
+    obj_j = vj.ExclusiveKL(vj.MFGaussian(dim), model_j, 2)
+    model, _ = vt.zoo.funnel()
     obj = vt.ExclusiveKL(vt.MFGaussian(dim, device="cpu", dtype=torch.float64), model, 2)
     x0 = torch.zeros((2, 2 * dim), dtype=torch.float64)
+    x0_j = jax.numpy.zeros((2, 2 * dim))
     calls = {
-        "bbvi_mesh": lambda: vt.bbvi(dim, log_density=model, n_iters=5, device="cpu",
-                                     num_restarts=2, multistart_kwargs=dict(mesh=object())),
-        "FSDPFullRankELBO": lambda: vt.parallel.FSDPFullRankELBO,
-        "multistart_optimize_mc_axis": lambda: vt.parallel.multistart_optimize(
-            vt.RMSProp(0.05), 5, obj, x0, mc_axis="mc"),
-        "multistart_faso_mesh": lambda: vt.parallel.multistart_faso(
-            vt.RMSProp(0.05), 5, obj, x0, mesh=object()),
-        "multistart_raabbvi_mesh": lambda: vt.parallel.multistart_raabbvi(
-            vt.RMSProp(0.05), 5, obj, x0, mesh=object(), schedule="async"),
-        "FASO_mesh": lambda: vt.FASO(vt.RMSProp(0.05), mesh=object()),
-        "multipath_pathfinder_mesh": lambda: vt.multipath_pathfinder(
-            model, x0[:, :dim], mesh=object()),
-        "save_pytree_orbax": lambda: vt.checkpoint.save_pytree_orbax,
+        "bbvi_mesh": (
+            lambda: vj.bbvi(dim, log_density=model_j, n_iters=5, num_restarts=2, key=key,
+                            multistart_kwargs=dict(mesh=jmesh)),
+            lambda: vt.bbvi(dim, log_density=model, n_iters=5, device="cpu",
+                            num_restarts=2, multistart_kwargs=dict(mesh=XMesh()))),
+        "multistart_optimize_mc_axis": (
+            lambda: vj.parallel.multistart_optimize(vj.RMSProp(0.05), 5, obj_j, x0_j, key,
+                                                    mesh=jmesh, mc_axis="mc"),
+            lambda: vt.parallel.multistart_optimize(vt.RMSProp(0.05), 5, obj, x0,
+                                                    mesh=XMesh(), mc_axis="mc")),
+        "multistart_faso_mesh": (
+            lambda: vj.parallel.multistart_faso(vj.RMSProp(0.05), 5, obj_j, x0_j, key,
+                                                mesh=jmesh),
+            lambda: vt.parallel.multistart_faso(vt.RMSProp(0.05), 5, obj, x0, mesh=XMesh())),
+        "multistart_raabbvi_mesh": (
+            lambda: vj.parallel.multistart_raabbvi(vj.RMSProp(0.05), 5, obj_j, x0_j, key,
+                                                   mesh=jmesh, schedule="async"),
+            lambda: vt.parallel.multistart_raabbvi(vt.RMSProp(0.05), 5, obj, x0,
+                                                   mesh=XMesh(), schedule="async")),
+        "FASO_mesh": (
+            lambda: vj.FASO(vj.RMSProp(0.05), mesh=jmesh, W_min=10).optimize(
+                20, obj_j, x0_j[0], key=key),
+            lambda: vt.FASO(vt.RMSProp(0.05), mesh=XMesh(), W_min=10).optimize(
+                20, obj, x0[0], generator=torch.Generator())),
+        "multipath_pathfinder_mesh": (
+            lambda: vj.multipath_pathfinder(model_j, x0_j[:, :dim], key, mesh=jmesh,
+                                            shard_axis="mc"),
+            lambda: vt.multipath_pathfinder(model, x0[:, :dim], mesh=XMesh(),
+                                            shard_axis="mc")),
+        "save_pytree_orbax": (
+            lambda: (j_save(str(tmp_path / "j"), {"ring": jax.numpy.ones((3, 4))}),
+                     j_load(str(tmp_path / "j"), like={"ring": jax.numpy.zeros((3, 2))})),
+            lambda: (vt.checkpoint.save_pytree_orbax(str(tmp_path / "t"),
+                                                     {"ring": torch.ones(3, 4)}),
+                     vt.checkpoint.load_pytree_orbax(str(tmp_path / "t"),
+                                                     like={"ring": torch.zeros(3, 2)}))),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 13b"):
-        calls[route]()
+    call_j, call_t = calls[route]
+    with pytest.raises(Exception) as exc_j:
+        call_j()
+    with pytest.raises(exc_j.type):
+        call_t()
+    assert exc_j.type in (ValueError, KeyError)
 
 
 @pytest.mark.parametrize("given,error", [

@@ -238,8 +238,9 @@ def test_multistart_faso_resume_matches_uninterrupted(fixed_clocks, tmp_path):
 
 
 def test_multistart_faso_validation():
-    """JAX's errors: a host-loop objective, an unsettable escalation; a
-    mesh is a 13b route; a generators list of the wrong length."""
+    """JAX's errors: a host-loop objective, an unsettable escalation, a
+    mesh without the restart axis; a generators list of the wrong
+    length."""
     model, _ = vt.zoo.logistic_regression(dim=D, n_data=40, **F64)
     obj = vt.ExclusiveKL(vt.FullRankGaussian(D, **F64), model, 2)
     x0 = torch.zeros((2, D + D * D), dtype=torch.float64)
@@ -256,8 +257,9 @@ def test_multistart_faso_validation():
         multistart_faso(vt.RMSProp(0.05), 10, obj, x0, mc_escalation=1.0)
     with pytest.raises(ValueError, match="2 restarts"):
         multistart_faso(vt.RMSProp(0.05), 10, obj, x0, generators=[torch.Generator()])
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        multistart_faso(vt.RMSProp(0.05), 10, obj, x0, mesh=object())
+    with pytest.raises(ValueError, match="no 'restart' axis"):
+        multistart_faso(vt.RMSProp(0.05), 10, obj, x0,
+                        mesh=type("MCMesh", (), {"mesh_dim_names": ("mc",)})())
 
 
 def test_restart_generators_are_the_callers_at_b1():

@@ -75,7 +75,8 @@ def test_multistart_optimize_matches_jax():
 
 
 def test_multistart_optimize_refuses_stateful_objectives():
-    """JAX's message for DIS; mesh / mc_axis are 13b routes."""
+    """JAX's message for DIS, also on a restart x mc mesh, where JAX checks
+    the state before the mesh."""
     model, _ = vt.zoo.logistic_regression(dim=2, n_data=20, **F64)
     dis = vt.DISInclusiveKL(vt.MFGaussian(2, **F64), model, 10, ess_target=5,
                             temper_prior=vt.MFGaussian(2, **F64),
@@ -83,8 +84,12 @@ def test_multistart_optimize_refuses_stateful_objectives():
     x0 = torch.zeros((2, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="estimator state"):
         multistart_optimize(vt.RMSProp(0.05), 10, dis, x0)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        multistart_optimize(vt.RMSProp(0.05), 10, dis, x0, mc_axis="mc")
+    mesh = type("Mesh2D", (), {"mesh_dim_names": ("restart", "mc"),
+                               "size": lambda self, dim=None: 1,
+                               "get_local_rank": lambda self, name=None: 0,
+                               "get_group": lambda self, name=None: None})()
+    with pytest.raises(ValueError, match="estimator state"):
+        multistart_optimize(vt.RMSProp(0.05), 10, dis, x0, mesh=mesh, mc_axis="mc")
 
 
 def _mf_pair():

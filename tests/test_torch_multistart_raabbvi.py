@@ -126,14 +126,16 @@ def test_multistart_raabbvi_round_resume_matches_uninterrupted(fixed_clocks,
 
 
 def test_multistart_raabbvi_schedule_and_mesh_are_deferred():
-    """The mesh is a 13b route (the async schedule runs:
-    tests/test_torch_async_raabbvi.py); JAX's ValueErrors for an unknown
-    schedule and a family without closed-form KL."""
+    """The mesh runs (tests/test_torch_multistart_sharded.py) and refuses
+    one without the restart axis, and the async schedule runs
+    (tests/test_torch_async_raabbvi.py); JAX's ValueErrors for those, for
+    an unknown schedule and for a family without closed-form KL."""
     model, _ = vt.zoo.logistic_regression(dim=2, n_data=20, **F64)
     obj = vt.ExclusiveKL(vt.MFGaussian(2, **F64), model, 2)
     x0 = torch.zeros((2, 4), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        multistart_raabbvi(vt.RMSProp(0.05), 10, obj, x0, mesh=object())
+    with pytest.raises(ValueError, match="no 'restart' axis"):
+        multistart_raabbvi(vt.RMSProp(0.05), 10, obj, x0,
+                           mesh=type("MCMesh", (), {"mesh_dim_names": ("mc",)})())
     with pytest.raises(ValueError, match='"schedule"'):
         multistart_raabbvi(vt.RMSProp(0.05), 10, obj, x0, schedule="other")
     net = vt.NeuralNet([(2, 2)], **F64)

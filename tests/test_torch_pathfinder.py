@@ -297,7 +297,10 @@ def test_pathfinder_init_and_bbvi_route():
         vt.pathfinder(model, torch.zeros(D, dtype=torch.float64), max_iters=0)
     with pytest.raises(ValueError, match="n_paths"):
         vt.multipath_pathfinder(model, torch.zeros(D, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        vt.multipath_pathfinder(model, torch.zeros(2, D, dtype=torch.float64), mesh=object())
+    with pytest.raises(KeyError, match="mc"):
+        # the path axis over a mesh without it: the JAX package's KeyError
+        vt.multipath_pathfinder(model, torch.zeros(2, D, dtype=torch.float64),
+                                mesh=type("XMesh", (), {"mesh_dim_names": ("x",)})(),
+                                shard_axis="mc")
     with pytest.raises(ValueError, match=r"init_point must be \(n_paths, dim\)"):
         vt.pathfinder_init(approx, model, init_point=torch.zeros(2, D), n_paths=3)

@@ -139,12 +139,17 @@ def test_pytree_files_cross_between_the_packages(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(c))
 
 
-def test_orbax_backend_is_deferred_with_a_roadmap_pointer():
+def test_orbax_backend_is_deferred_with_a_roadmap_pointer(tmp_path):
+    """The Orbax pair is no longer deferred: both packages have it, and the
+    port's (over torch.distributed.checkpoint) round-trips a tree in one
+    process (tests/test_torch_dcp.py holds it further)."""
     from viabel_torch import checkpoint
     for name in ("save_pytree_orbax", "load_pytree_orbax"):
-        assert hasattr(jcheckpoint, name)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            getattr(checkpoint, name)
+        assert hasattr(jcheckpoint, name) and callable(getattr(checkpoint, name))
+    tree = {"ring": torch.arange(6.0).reshape(2, 3), "k": 4}
+    checkpoint.save_pytree_orbax(str(tmp_path / "ckpt"), tree)
+    back = checkpoint.load_pytree_orbax(str(tmp_path / "ckpt"), like=tree)
+    assert torch.equal(back["ring"], tree["ring"]) and back["k"] == 4
 
 
 def _gaussian_objective():

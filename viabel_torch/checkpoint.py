@@ -1,5 +1,6 @@
-"""Checkpoint and resume of optimizer state, the ``.npz`` backend
-(counterpart of ``viabel_tpu/checkpoint.py:42-70, 124-144``).
+"""Checkpoint and resume of optimizer state (counterpart of
+``viabel_tpu/checkpoint.py``): the ``.npz`` backend and the directory
+backend over ``torch.distributed.checkpoint``.
 
 ``save_pytree`` writes a nested structure of dicts, lists and tuples whose
 leaves are tensors, numpy arrays, Python scalars or strings to one
@@ -14,24 +15,30 @@ the JAX package loads here with the JAX state as the template, and
 Combined with ``FASO.optimize(..., resume_state=...)`` a run that was
 stopped restarts from its last segment boundary with the same
 convergence statistics (the history ring is the detection state).
+
+``save_pytree_orbax`` / ``load_pytree_orbax`` keep the JAX package's names
+for its Orbax directory backend and write a ``torch.distributed.checkpoint``
+directory instead. Every rank of the process group calls them with its
+own tree: a sharded run's state holds this rank's ring shard (or rings)
+and its copy of the replicated leaves, and each rank writes its tree to
+its own file, with no gather. A load therefore needs the world size of
+the save and returns each rank its own tree. In one process with no
+process group they work alike.
 """
 
 import json
 import os
+import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .utils import check_device, deferred_names
+from .utils import check_device
 
-__all__ = ["save_pytree", "load_pytree"]
+__all__ = ["save_pytree", "load_pytree", "save_pytree_orbax", "load_pytree_orbax"]
 
 _META_KEY = "__viabel_tpu_treedef__"
-
-#: the Orbax directory backend writes mesh-sharded arrays shard by shard;
-#: it comes with the sharded engines (ROADMAP.md, Queue 1 item 13b)
-__getattr__ = deferred_names(__name__, {"save_pytree_orbax": "13b",
-                                        "load_pytree_orbax": "13b"})
 
 
 def _flatten(tree, path=()):
@@ -120,3 +127,139 @@ def load_pytree(path, like=None, device="cuda"):
     if n_like != len(arrays):
         raise ValueError(f"checkpoint has {len(arrays)} leaves; template has {n_like}")
     return _unflatten(like, iter(arrays))
+
+
+def _group():
+    """``(rank, world size)`` of the default process group, or ``(0, 1)``
+    without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _dcp(fn, state, path, world):
+    """``dcp.save`` or ``dcp.load`` of ``state``; in one process without
+    the notice that DCP gives there."""
+    import warnings
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        fn(state, checkpoint_id=path, no_dist=world == 1)
+
+
+def _dcp_value(leaf):
+    """A leaf as DCP stores it: tensors as they are (a numpy array or
+    numpy scalar as a CPU tensor), Python scalars and strings as
+    objects."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().contiguous()
+    if isinstance(leaf, (np.ndarray, np.generic)):
+        return torch.from_numpy(np.array(leaf))  # a contiguous copy, 0-d kept
+    return leaf
+
+
+def save_pytree_orbax(path, tree):
+    """Write ``tree`` to the checkpoint directory ``path`` with
+    ``torch.distributed.checkpoint``, overwriting an existing one (the JAX
+    package's ``force=True``). Under a process group every rank calls it
+    with its own tree and writes it to its own file (a ring shard is
+    written where it lies; nothing is gathered). Leaves are those of
+    :func:`save_pytree`."""
+    import torch.distributed.checkpoint as dcp
+    rank, world = _group()
+    state, paths = {}, []
+    for i, (leaf_path, leaf) in enumerate(_flatten(tree)):
+        state[f"rank{rank}/leaf_{i:05d}"] = _dcp_value(leaf)
+        paths.append("/".join(leaf_path) or "__root__")
+    state[f"rank{rank}/{_META_KEY}"] = json.dumps({"paths": paths, "world": world})
+    path = os.path.abspath(path)
+    if rank == 0 and os.path.lexists(path):
+        if os.path.isdir(path) and not os.path.islink(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
+    if world > 1:
+        dist.barrier()
+    _dcp(dcp.save, state, path, world)
+
+
+def _nest(paths, leaves):
+    """The nested dicts and lists that ``paths`` describe (a dict whose
+    keys are ``0..n-1`` comes back a list)."""
+    root = {}
+    for path, leaf in zip(paths, leaves):
+        node, parts = root, path.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    out = lists(root)
+    return out.get("__root__", out) if isinstance(out, dict) else out
+
+
+def load_pytree_orbax(path, like=None, device="cuda"):
+    """Read a directory written by :func:`save_pytree_orbax`; every rank
+    reads its own tree, so the process group needs the world size of the
+    save (``ValueError`` otherwise).
+
+    With ``like`` (a tree of the same structure, such as this rank's
+    state that was saved), each leaf comes back as the template's leaf:
+    a tensor on its device and in its dtype (read there directly), a numpy
+    array, or a Python scalar; a template leaf of another shape raises
+    ``ValueError``, as the JAX package's Orbax restore does. Without it,
+    the saved structure, with tensors on ``device``.
+    """
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+    rank, world = _group()
+    path = os.path.abspath(path)
+    stored = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    prefix = f"rank{rank}/"
+    meta_key = prefix + _META_KEY
+    saved_world = len({key.split("/", 1)[0] for key in stored})
+    if meta_key not in stored or saved_world != world:
+        raise ValueError(f"{path} was written by {saved_world} ranks; this process "
+                         f"group has {world}: a load needs the mesh shape of the save")
+    meta = {meta_key: None}
+    _dcp(dcp.load, meta, path, world)
+    paths = json.loads(meta[meta_key])["paths"]
+    templates = ([None] * len(paths) if like is None
+                 else [leaf for _, leaf in _flatten(like)])
+    if len(templates) != len(paths):
+        raise ValueError(f"checkpoint has {len(paths)} leaves; template has "
+                         f"{len(templates)}")
+    if like is None:
+        device = check_device(device)
+    state = {}
+    for i, tmpl in enumerate(templates):
+        key = f"{prefix}leaf_{i:05d}"
+        md = stored[key]
+        if not isinstance(md, TensorStorageMetadata):
+            state[key] = None
+            continue
+        shape = tuple(md.size)
+        if tmpl is not None and hasattr(tmpl, "shape") and tuple(tmpl.shape) != shape:
+            raise ValueError(f"leaf {paths[i]!r}: requested shape {tuple(tmpl.shape)} "
+                             f"is not compatible with the stored shape {shape}")
+        where = (tmpl.device if isinstance(tmpl, torch.Tensor)
+                 else device if tmpl is None else "cpu")
+        state[key] = torch.empty(shape, dtype=md.properties.dtype, device=where)
+    _dcp(dcp.load, state, path, world)
+    leaves = [state[f"{prefix}leaf_{i:05d}"] for i in range(len(paths))]
+    if like is None:
+        return _nest(paths, leaves)
+    restored = []
+    for value, tmpl in zip(leaves, templates):
+        if isinstance(tmpl, torch.Tensor):
+            restored.append(value.to(tmpl.dtype))
+        else:
+            array = value.cpu().numpy() if isinstance(value, torch.Tensor) else value
+            restored.append(_restore(np.asarray(array), tmpl))
+    return _unflatten(like, iter(restored))

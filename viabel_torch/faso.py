@@ -19,11 +19,19 @@ segment boundary (save it with :mod:`viabel_torch.checkpoint`), and
 ``max_time`` stops a run at a segment boundary with ``timed_out`` set. In
 place of the JAX package's PRNG key the state carries the generator's
 ``get_state()``; a resumed run sets it into the caller's generator, which
-must be on the same device type. ``mesh`` is not ported yet (ROADMAP.md,
-Queue 1 item 13b). Over an MC-sharded objective
+must be on the same device type. Over an MC-sharded objective
 (:func:`viabel_torch.parallel.shard_mc_objective`) every rank runs this
 loop; the decisions that read the wall clock (``max_time`` and the MCSE
 recheck schedule) are rank 0's, through the objective's ``agree``.
+
+``FASO(mesh=..., shard_axis=...)`` splits the ring's columns over a mesh
+axis (:func:`viabel_torch.parallel.mesh.column_split`): each rank keeps
+its own contiguous ``(R, D_r)`` shard, writes its columns of the
+replicated iterate, and runs the statistics (kernel 1 included) on its
+shard. Only the reductions cross ranks: a MAX of the windows' R-hat (a
+SUM of the quantile gate's counts), a MAX of MCSE and a MIN of ESS, and
+an all-gather of the window means, so every rank returns the whole
+vector. The clock readings are rank 0's over the axis.
 """
 
 import math
@@ -37,10 +45,11 @@ from .families import MFGaussian
 from .hmc import hmc_sample
 from .mc_diagnostics import (ess_and_mcse_windowed, ring_window_mean,
                              split_rhat_ring_windows)
+from .ops.ringstats import colsum
 from .optimizers import (AveragedAdam, AveragedRMSProp, Optimizer, RMSProp,
                          StochasticGradientOptimizer, _obj_check_state, _obj_init_state,
                          default_generator)
-from .utils import Timer, not_ported
+from .utils import Timer
 
 __all__ = ["FASO", "RAABBVI"]
 
@@ -172,7 +181,7 @@ def _recheck_scale(relative_opt_time, relative_mcse_time):
     return max(1.05, 1.0 + 1.0 / math.sqrt(1.0 + ratio))
 
 
-def _mcse_check(ring, t, w, mf_dim, chunk=8192):
+def _mcse_check(ring, t, w, mf_dim, chunk=8192, c0=0, gather=None):
     """Windowed per-coordinate (ESS, MCSE) with the reference's MFGaussian
     scaling and constant-coordinate handling (optimization.py:575-592).
 
@@ -182,24 +191,32 @@ def _mcse_check(ring, t, w, mf_dim, chunk=8192):
     chunk gathered oldest-first over the window only, so the peak extra
     memory is one ``(w, chunk)`` slab and its FFT, not a reordered copy of
     the whole ring.
+
+    A column shard of the ring (``FASO(mesh=...)``) starts at global
+    column ``c0``; ``gather`` assembles the whole window mean from every
+    rank's, since a ``mu`` column's ``log_sigma`` column may lie on
+    another rank.
     """
     R, D = ring.shape
     t, w = int(t), int(w)
     idx = torch.as_tensor([(t - w + j) % R for j in range(w)],
                           device=ring.device)
     effs, mcses, means, diffs = [], [], [], []
-    for c0 in range(0, D, chunk):
-        ordered = ring[idx, c0:c0 + chunk]
+    for j in range(0, D, chunk):
+        ordered = ring[idx, j:j + chunk]
         eff_c, mcse_c = ess_and_mcse_windowed(ordered, w, chunk_size=chunk)
         effs.append(eff_c)
         mcses.append(mcse_c)
-        means.append(ordered.sum(dim=0) / w)
+        means.append(colsum(ordered) / w)
         diffs.append(ordered[w - 2] - ordered[w - 1])
     eff, mcse, mean_w, diff = (torch.cat(x) for x in (effs, mcses, means, diffs))
     if mf_dim is not None:
-        # log_sigma coordinates occupy [dim, 2*dim)
-        mcse = torch.cat([mcse[:mf_dim] / torch.exp(mean_w[mf_dim:2 * mf_dim]),
-                          mcse[mf_dim:]])
+        # log_sigma coordinates occupy [dim, 2*dim); this shard's mu
+        # columns are its first n_mu
+        full_mean = mean_w if gather is None else gather(mean_w)
+        n_mu = max(0, min(mf_dim - c0, D))
+        mcse = torch.cat([mcse[:n_mu] / torch.exp(full_mean[c0 + mf_dim:c0 + mf_dim + n_mu]),
+                          mcse[n_mu:]])
     const = diff == 0.0
     eff = torch.where(const, torch.inf, eff)
     mcse = torch.where(const, 0.0, mcse)
@@ -244,8 +261,12 @@ class FASO(Optimizer):
     dispatch and its read-back; diagnostics mode reads at once),
     ``max_time`` (a wall-clock budget in seconds for each ``optimize``
     call, checked at segment boundaries), ``mc_escalation``,
-    ``mc_max_samples``, ``mc_patience``, ``mc_plateau_rtol``. ``mesh`` is
-    not ported yet.
+    ``mc_max_samples``, ``mc_patience``, ``mc_plateau_rtol``; ``mesh``
+    and ``shard_axis`` split the history ring's columns over that axis of
+    a ``DeviceMesh`` (see the module docstring). Every rank of the mesh
+    runs ``optimize`` with the same arguments and generator seed; the
+    results are the same on every rank and equal the unsharded run's.
+    A resume needs the mesh shape of the run that saved the state.
 
     Beside the JAX package's results, ``results["rhat_verdicts"]`` lists
     each R-hat verdict read as ``(k, best_window, statistic, passed)``.
@@ -254,14 +275,14 @@ class FASO(Optimizer):
     def __init__(self, sgo, *, mcse_threshold=0.1, W_min=200, ESS_min=None,
                  k_check=None, max_history=None, rhat_threshold=1.1,
                  rhat_quantile=None, rhat_backoff=None, rhat_group=None,
-                 check_pipeline=4, mesh=None, max_time=None,
+                 check_pipeline=4, mesh=None, shard_axis="mc", max_time=None,
                  mc_escalation=None, mc_max_samples=None, mc_patience=3,
                  mc_plateau_rtol=0.05):
         if not isinstance(sgo, StochasticGradientOptimizer):
             raise ValueError("sgo must be a subclass of StochasticGradientOptimizer")
-        if mesh is not None:
-            raise not_ported("FASO(mesh=...)", "13b")
         self._sgo = sgo
+        self._mesh = mesh
+        self._shard_axis = shard_axis
         self._mcse_threshold = float(mcse_threshold)
         self._W_min = int(W_min)
         self._ESS_min = W_min // 8 if ESS_min is None else ESS_min
@@ -305,17 +326,17 @@ class FASO(Optimizer):
                             self._rhat_backoff, 1)
 
     def _run_segment(self, objective, var_param, opt_state, obj_state, generator,
-                     ring, t, lr, steps, diagnostics):
-        """``steps`` optimizer steps, each iterate written to ring slot
-        ``t % R``. Returns the carry and the segment's outputs (values,
-        and per-step gradients and directions on the host in diagnostics
-        mode)."""
+                     ring, t, lr, steps, diagnostics, cols=slice(None)):
+        """``steps`` optimizer steps, each iterate's columns ``cols`` (the
+        ring's shard) written to ring slot ``t % R``. Returns the carry and
+        the segment's outputs (values, and per-step gradients and
+        directions on the host in diagnostics mode)."""
         R = ring.shape[0]
         values, grads, dirs = [], [], []
         for _ in range(steps):
             var_param, opt_state, obj_state, value, direction, grad = self._sgo.step(
                 objective, var_param, opt_state, obj_state, generator, lr)
-            ring[t % R] = var_param
+            ring[t % R] = var_param[cols]
             t += 1
             values.append(value)
             if diagnostics:
@@ -356,12 +377,36 @@ class FASO(Optimizer):
 
         var_param = init_param.detach().clone()
         D = var_param.shape[0]
+        # the detection geometry reads the global D (the quantile gate's
+        # allowed count among them)
         _, _, G, R, rhat_allowed = _detection_geometry(
             D, self._W_min, self._k_check, self._ESS_min, self._rhat_group,
             self._rhat_quantile, self._rhat_backoff,
             int(self._max_history) if self._max_history else max(n_iters, 2))
+        shard, c0, c1, gather = None, 0, D, None
+        if self._mesh is not None:
+            from .parallel.mesh import MeshAxis, column_split
+            shard = MeshAxis(self._mesh, self._shard_axis)
+            bounds = column_split(D, shard.n, var_param.dtype)
+            c0, c1 = bounds[shard.coordinate], bounds[shard.coordinate + 1]
+            widths = np.diff(bounds).tolist()
+
+            def gather(x):
+                return shard.gather(x, widths)
+
+        cols = slice(c0, c1)
+
+        def window_mean(w):
+            """The whole ``(D,)`` mean of the ring's last ``w`` iterates."""
+            mean = ring_window_mean(ring, t, w, G)
+            return mean if gather is None else gather(mean)
+
+        def agreed(x):
+            x = _agreed(objective, x)
+            return x if shard is None else shard.agree(x)
+
         # a resumed run brings its own ring
-        ring = (torch.zeros((R, D), dtype=var_param.dtype, device=var_param.device)
+        ring = (torch.zeros((R, c1 - c0), dtype=var_param.dtype, device=var_param.device)
                 if resume_state is None else None)
         opt_state = (self._sgo.init_state(var_param)
                      if init_opt_state is None else init_opt_state)
@@ -424,6 +469,12 @@ class FASO(Optimizer):
             # a copy: segments write the ring in place, and the caller's
             # snapshot must stay valid
             ring = torch.as_tensor(rs["ring"]).to(var_param).clone()
+            saved_cols = np.asarray(rs.get("ring_columns", (0, D, D))).tolist()
+            if ring.shape[1] != c1 - c0 or saved_cols != [c0, c1, D]:
+                raise ValueError(
+                    f"resume_state's ring holds columns {saved_cols[:2]} of "
+                    f"{saved_cols[2]}; this rank's shard is [{c0}, {c1}) of {D}: a "
+                    "resume needs the mesh shape of the run that saved it")
             R = ring.shape[0]  # the checkpointed ring wins over local sizing
             t = int(rs["t"])
             k = int(rs["k"])
@@ -493,7 +544,7 @@ class FASO(Optimizer):
                 # the average covers [ck.k - best_W, k): what a synchronous
                 # check at k would produce after back-dating
                 w_eff = min(best_W + (k - ck_k), R, k)
-                iterate_average = ring_window_mean(ring, t, w_eff, G)
+                iterate_average = window_mean(w_eff)
             if diagnostics:
                 history["iterate_average_k_history"].append(ck_k)
                 history["iterate_average_history"].append(iterate_average)
@@ -550,8 +601,7 @@ class FASO(Optimizer):
         while k < n_iters:
             # the wall-clock budget is enforced at segment boundaries, so a
             # timed-out run stops exactly where a resume can continue it
-            if (max_time is not None
-                    and _agreed(objective, _now() - loop_start) >= max_time):
+            if max_time is not None and agreed(_now() - loop_start) >= max_time:
                 timed_out = True
                 print("WARNING: wall-clock budget ({:g} s) reached at "
                       "iteration {}; returning partial results "
@@ -562,7 +612,7 @@ class FASO(Optimizer):
             steps = min(self._k_check - (k % self._k_check), n_iters - k)
             var_param, opt_state, obj_state, t, outs = self._run_segment(
                 objective, var_param, opt_state, obj_state, generator, ring, t,
-                lr, steps, diagnostics)
+                lr, steps, diagnostics, cols)
             _obj_check_state(objective, obj_state)
             k += steps
             history["value_history"].append(outs[0])
@@ -584,6 +634,10 @@ class FASO(Optimizer):
                         ring, t, windows, G,
                         exceed_threshold=(None if rhat_allowed is None
                                           else self._rhat_threshold))
+                    if shard is not None:
+                        # on the device, before the pipelined read-back
+                        r_hats = (shard.max(r_hats) if rhat_allowed is None
+                                  else shard.sum(r_hats))
                     pending.append({"k": k, "windows": windows,
                                     "r_hats": _to_host_async(r_hats)})
             # read verdicts at least `pipeline` segments old (by dispatch
@@ -596,15 +650,25 @@ class FASO(Optimizer):
             # MCSE / ESS stopping check (reference optimization.py:566-605)
             if k_conv is not None and k - k_conv >= W_check:
                 W = min(k - k_conv, R, k)
-                iterate_average = ring_window_mean(ring, t, W, G)
+                iterate_average = window_mean(W)
                 if diagnostics and (not history["iterate_average_k_history"]
                                     or history["iterate_average_k_history"][-1] != k):
                     history["iterate_average_k_history"].append(k)
                     history["iterate_average_history"].append(iterate_average)
                 with Timer() as mcse_timer:
-                    eff, mcse = _mcse_check(ring, t, W, mf_dim)
-                    eff = eff.cpu().numpy()
-                    mcse = mcse.cpu().numpy()
+                    eff, mcse = _mcse_check(ring, t, W, mf_dim, c0=c0, gather=gather)
+                    whole = shard is None or diagnostics or self._rhat_quantile is not None
+                    if whole:
+                        if shard is not None:
+                            eff, mcse = gather(eff), gather(mcse)
+                        eff = eff.cpu().numpy()
+                        mcse = mcse.cpu().numpy()
+                    else:
+                        # one MAX over the shards: the max MCSE and the min
+                        # ESS, standing in for the whole vectors below
+                        worst = shard.max(torch.stack([mcse.max(), -eff.min()]))
+                        worst = worst.cpu().numpy()
+                        mcse, eff = worst[:1], -worst[1:]
                 mcse_time_total += mcse_timer.interval
                 if diagnostics:
                     history["ess_and_mcse_k_history"].append(k)
@@ -633,7 +697,7 @@ class FASO(Optimizer):
                 # optimization time is wall-clock minus check time
                 total_opt_time = resumed_opt_time + max(
                     _now() - loop_start - mcse_time_total, 1e-9)
-                W_check = int(_agreed(objective, int(
+                W_check = int(agreed(int(
                     _recheck_scale(total_opt_time / k, mcse_timer.interval / W)
                     * W_check + 1)))
                 if _plateaued(mc_plateau_mcse):
@@ -674,7 +738,7 @@ class FASO(Optimizer):
             # R-hat never passed and the per-check average was deferred:
             # compute the best-window average once so opt_param matches
             # the reference (optimization.py:556, 632)
-            iterate_average = ring_window_mean(ring, t, last_best_W, G)
+            iterate_average = window_mean(last_best_W)
 
         if k_stopped is not None:
             print("Convergence reached at iteration", k_stopped)
@@ -724,6 +788,9 @@ class FASO(Optimizer):
             "total_opt_time": total_opt_time,
             **resume_pre_drain,
         }
+        if shard is not None:
+            # the ring is this rank's shard: its columns and the global D
+            results["resume_state"]["ring_columns"] = np.asarray([c0, c1, D])
         return results
 
 

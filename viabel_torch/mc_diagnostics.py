@@ -22,7 +22,7 @@ package (``_ess_chunk_vectorized``).
 import numpy as np
 import torch
 
-from .ops.ringstats import ring_group_stats
+from .ops.ringstats import colsum, ring_group_stats
 
 __all__ = ["autocov", "ess_and_mcse_windowed", "split_rhat_windowed",
            "ring_cum_stats", "split_rhat_ring_windows", "ring_window_mean",
@@ -93,11 +93,13 @@ def ess_and_mcse_windowed(history, w, chunk_size=8192):
     (the FFT scratch at full width is O(D * fft_len))."""
     w = int(w)
     window = history[history.shape[0] - w:]
-    xt = window.T
+    # rows as coordinates; contiguous on the CPU, where a reduction over a
+    # strided axis rounds by the coordinate count (see colsum)
+    xt = window.T.contiguous() if window.device.type == "cpu" else window.T
     eff = torch.cat([_ess_chunk(xt[i:i + chunk_size])
                      for i in range(0, xt.shape[0], chunk_size)])
-    mean = window.sum(dim=0) / w
-    var = ((window - mean) ** 2).sum(dim=0) / (w - 1.0)
+    mean = colsum(window) / w
+    var = colsum((window - mean) ** 2) / (w - 1.0)
     return eff, torch.sqrt(var) / torch.sqrt(eff)
 
 
@@ -155,8 +157,8 @@ def ring_cum_stats(ring, t, group):
     ge = s1e // group
     xb = ring[ge * group:s1e] - center
     return {"cumS": cumS, "cumQ": cumQ,
-            "P1eS": cumS[ge] + xb.sum(dim=0),
-            "P1eQ": cumQ[ge] + (xb * xb).sum(dim=0),
+            "P1eS": cumS[ge] + colsum(xb),
+            "P1eQ": cumQ[ge] + colsum(xb * xb),
             "center": center, "t": t, "R": R}
 
 
@@ -220,7 +222,7 @@ def ring_window_mean(ring, t, w, group):
     b = t - w
     s0 = b % R
     g0 = s0 // group
-    part0 = (ring[g0 * group:s0] - stats["center"]).sum(dim=0)
+    part0 = colsum(ring[g0 * group:s0] - stats["center"])
     P0 = stats["cumS"][g0] + part0
     if s0 >= t % R and b < t:  # the arc wraps
         arc = stats["cumS"][-1] - P0 + stats["P1eS"]

@@ -38,11 +38,9 @@ the family's draw (:func:`_step_model`), so every evaluation in the step
 sees one minibatch; the importance-weight objectives refuse such a model.
 """
 
-import hashlib
 import math
 
 import torch
-import torch.distributed as dist
 from torch import func
 
 __all__ = ["VariationalObjective", "StochasticVariationalObjective",
@@ -75,55 +73,12 @@ def _reject_subsampled(model, objective_name):
             "ExclusiveKL for SubsampledModel")
 
 
-class _ShardAxis:
-    """One mesh axis of MC-sample data parallelism, seen from this rank:
-    its size ``n``, this rank's ``coordinate`` and the axis's process
-    group. Every reduction is an all-reduce on a detached tensor, also at
-    ``n = 1``."""
-
-    def __init__(self, mesh, axis_name):
-        names = tuple(mesh.mesh_dim_names or ())
-        if axis_name not in names:
-            raise ValueError(f"mesh has no axis {axis_name!r} (axes {names})")
-        self.name = axis_name
-        self.n = mesh.size(names.index(axis_name))
-        self.coordinate = mesh.get_local_rank(axis_name)
-        self.group = mesh.get_group(axis_name)
-
-    def local_count(self, S):
-        """This rank's share of ``S`` samples."""
-        if S % self.n:
-            raise ValueError(f"num_mc_samples={S} must be divisible by the "
-                             f"{self.name} axis size {self.n}")
-        return S // self.n
-
-    def _reduce(self, x, op):
-        # in place: every caller passes a tensor of its own
-        x = x.detach()
-        dist.all_reduce(x, op=op, group=self.group)
-        return x
-
-    def sum(self, x):
-        return self._reduce(x, dist.ReduceOp.SUM)
-
-    def max(self, x):
-        return self._reduce(x, dist.ReduceOp.MAX)
-
-    def generator(self, generator):
-        """The generator of this rank's draws in one step: seeded from the
-        caller's generator state and this rank's coordinate (the JAX
-        package's ``fold_in(key, axis_index)``). Every rank's caller
-        generator is in the same state, so ranks draw apart and a rerun
-        draws again what it drew. The caller's generator then advances by
-        one draw, so the next step draws anew; nothing waits for the
-        device."""
-        state = generator.get_state().numpy().tobytes()
-        digest = hashlib.blake2b(state + int(self.coordinate).to_bytes(8, "little"),
-                                 digest_size=8).digest()
-        local = torch.Generator(generator.device)
-        local.manual_seed(int.from_bytes(digest, "little") >> 1)
-        torch.empty(1, device=generator.device).normal_(generator=generator)
-        return local
+def _ShardAxis(mesh, axis_name):
+    """One mesh axis of MC-sample data parallelism, seen from this rank
+    (:class:`viabel_torch.parallel.mesh.MeshAxis`; imported here at call
+    time, since the parallel package imports this module)."""
+    from .parallel.mesh import MeshAxis
+    return MeshAxis(mesh, axis_name)
 
 
 class VariationalObjective:

@@ -17,7 +17,18 @@ import torch
 
 from . import _build
 
-__all__ = ["ring_group_stats", "ring_group_stats_plain"]
+__all__ = ["ring_group_stats", "ring_group_stats_plain", "colsum"]
+
+
+def colsum(x, dim=0):
+    """``x.sum(dim)`` with each column summed as it is in any column shard
+    of ``x``. On the CPU the reduced axis is made the contiguous last one
+    first: a CPU sum over an outer axis rounds by the column count, and a
+    ring split over ranks (``FASO(mesh=...)``) must sum each column as the
+    whole ring does."""
+    if x.device.type == "cpu":
+        return x.movedim(dim, -1).contiguous().sum(dim=-1)
+    return x.sum(dim=dim)
 
 
 def ring_group_stats_plain(ring, center, group):
@@ -25,7 +36,7 @@ def ring_group_stats_plain(ring, center, group):
     of the JAX package, on an unpacked ring)."""
     R = ring.shape[0]
     x = (ring - center).reshape(R // group, group, *ring.shape[1:])
-    return x.sum(dim=1), (x * x).sum(dim=1)
+    return colsum(x, dim=1), colsum(x * x, dim=1)
 
 
 def ring_group_stats(ring, center, group):

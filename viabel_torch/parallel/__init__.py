@@ -1,12 +1,13 @@
 """Multistart engines and MC-sample data parallelism (counterpart of
 ``viabel_tpu/parallel``).
 
-Ported: the single-device multistart engines (:func:`multistart_optimize`,
+Ported: the multistart engines (:func:`multistart_optimize`,
 :func:`multistart_faso`, :func:`multistart_raabbvi` on the lockstep and the
-async schedule) and the MC-sample axis over ``torch.distributed``
-(:func:`make_mesh`, :func:`distributed_init`, :class:`ShardedExclusiveKL`,
-:func:`shard_mc_objective`). ``FSDPFullRankELBO`` and every engine's
-``mesh=`` raise ``NotImplementedError`` pointing at ROADMAP.md.
+async schedule), on one device or with their restarts split over the
+ranks of a mesh axis (``mesh=``), and the MC-sample axis over
+``torch.distributed`` (:func:`make_mesh`, :func:`distributed_init`,
+:class:`ShardedExclusiveKL`, :func:`shard_mc_objective`).
+``FSDPFullRankELBO`` raises ``NotImplementedError`` pointing at ROADMAP.md.
 """
 
 from ..utils import deferred_names

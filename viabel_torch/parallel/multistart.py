@@ -23,6 +23,14 @@ Draw streams: the JAX package splits the key per restart. Here restart
 generator (:func:`restart_generators`); a single restart (``B = 1``) draws
 from the caller's generator itself, so ``multistart_faso`` at ``B = 1``
 is the port's ``FASO.optimize`` on the same generator.
+
+With ``mesh=`` the restarts split over the mesh's restart axis: each rank
+steps its ``B / P`` restarts and keeps their rings, and the per-restart
+statistics (R-hat rows, ESS/MCSE rows, window means) are all-gathered in
+restart order, so every rank runs the same host bookkeeping on all B
+restarts and takes every decision alike; clock readings are rank 0's.
+The results are the unsharded run's on every rank; ``resume_state``
+carries this rank's rings and everything else whole.
 """
 
 from collections import deque
@@ -38,7 +46,8 @@ from ..families import MFGaussian
 from ..mc_diagnostics import ring_window_mean, split_rhat_ring_windows
 from ..optimizers import (StochasticGradientOptimizer, _obj_check_state, _obj_init_state,
                           default_generator)
-from ..utils import Timer, not_ported
+from ..utils import Timer
+from .mesh import restart_axis_of
 
 __all__ = ["multistart_faso", "restart_generators"]
 
@@ -61,15 +70,44 @@ def restart_generators(generator, B, device):
     return [torch.Generator(device).manual_seed(int(s)) for s in seeds]
 
 
+def _to_device(obj, device):
+    """``obj`` with every tensor in it moved to ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_device(v, device) for v in obj)
+    return obj
+
+
+def _gather_owned(restarts, items, device=None):
+    """A B-long list whose entry ``b`` is the one the rank owning restart
+    ``b`` on the ``restarts`` axis holds in ``items`` (a copy of ``items``
+    without a split); tensors come back on ``device``, or on the host."""
+    if restarts is None:
+        return list(items)
+    parts = restarts.gather_objects([items[b] for b in restarts.rows(len(items))])
+    out = [item for part in parts for item in part]
+    return out if device is None else _to_device(out, device)
+
+
 class _BatchedEngine:
     """B restarts of one configuration (objective, step rule, B, D, ring
     group G, detection gates): the lockstep segment runner and the
     per-restart ring statistics. It holds no run state, so a round-driving
-    caller (``multistart_raabbvi``) can call it round after round."""
+    caller (``multistart_raabbvi``) can call it round after round.
+
+    ``restarts`` (a :class:`~viabel_torch.parallel.mesh.MeshAxis`) splits
+    the restarts over ranks: this rank steps and keeps the rings of
+    ``local`` only, and every statistic is gathered to all ranks."""
 
     def __init__(self, sgo, objective, init_params, *, G, diagnostics,
-                 rhat_allowed, rhat_threshold):
+                 rhat_allowed, rhat_threshold, restarts=None):
         self.B, self.D = init_params.shape
+        self.dtype, self.device = init_params.dtype, init_params.device
+        self.restarts = restarts
+        self.local = range(self.B) if restarts is None else restarts.rows(self.B)
         self.G = G
         self.diagnostics = diagnostics
         self._sgo = sgo
@@ -88,28 +126,63 @@ class _BatchedEngine:
         ring's slot ``t % R``. Returns ``(values (B, steps), grads,
         dirs)``, the last two ``(B, steps, D)`` host arrays in diagnostics
         mode, else ``None``."""
-        B, objective, sgo = self.B, self._objective, self._sgo
-        R = run.rings[0].shape[0]
-        values = [[] for _ in range(B)]
-        grads = [[] for _ in range(B)] if self.diagnostics else None
-        dirs = [[] for _ in range(B)] if self.diagnostics else None
+        objective, sgo, local = self._objective, self._sgo, self.local
+        R = run.rings[local[0]].shape[0]
+        values = [[] for _ in local]
+        grads = [[] for _ in local] if self.diagnostics else None
+        dirs = [[] for _ in local] if self.diagnostics else None
         for _ in range(steps):
-            for b in range(B):
+            for i, b in enumerate(local):
                 (run.var_params[b], run.opt_states[b], run.obj_states[b], value,
                  direction, grad) = sgo.step(objective, run.var_params[b],
                                              run.opt_states[b], run.obj_states[b],
                                              run.generators[b], float(run.lr[b]))
                 run.rings[b][(run.t - run.origins[b]) % R] = run.var_params[b]
-                values[b].append(value)
+                values[i].append(value)
                 if self.diagnostics:
-                    grads[b].append(grad)
-                    dirs[b].append(direction)
+                    grads[i].append(grad)
+                    dirs[i].append(direction)
             run.t += 1
-        out = torch.stack([torch.stack(v) for v in values])
+        out = self.gather_rows(torch.stack([torch.stack(v) for v in values]))
         if not self.diagnostics:
             return out, None, None
-        return (out, torch.stack([torch.stack(g) for g in grads]).cpu().numpy(),
-                torch.stack([torch.stack(d) for d in dirs]).cpu().numpy())
+        return (out,
+                self.gather_rows(torch.stack([torch.stack(g) for g in grads])).cpu().numpy(),
+                self.gather_rows(torch.stack([torch.stack(d) for d in dirs])).cpu().numpy())
+
+    # -- the restart split ----------------------------------------------------
+    def gather_rows(self, x):
+        """``(B, ...)`` from this rank's ``(len(local), ...)`` rows."""
+        return x if self.restarts is None else self.restarts.gather(x)
+
+    def gather_list(self, items, device=None):
+        """:func:`_gather_owned` over this engine's restart split."""
+        return _gather_owned(self.restarts, items, device)
+
+    def agree(self, x):
+        """Rank 0's reading of a clock over the restart axis."""
+        return x if self.restarts is None else self.restarts.agree(x)
+
+    def _owned(self, keys):
+        """``keys`` (restart indices, sorted) that this rank owns, and the
+        count each rank owns."""
+        keys = sorted(keys)
+        if self.restarts is None:
+            return keys, None
+        per = self.B // self.restarts.n
+        sizes = [sum(1 for b in keys if b // per == r) for r in range(self.restarts.n)]
+        return [b for b in keys if b in self.local], sizes
+
+    def _gather_keyed(self, rows, keys, sizes):
+        """``{b: row}`` for every b in ``keys`` from each owner's rows."""
+        if sizes is None:
+            return rows
+        if not keys:
+            return {}
+        mine = [rows[b] for b in sorted(rows)]
+        x = (torch.stack(mine) if mine
+             else torch.zeros((0, self.D), dtype=self.dtype, device=self.device))
+        return dict(zip(sorted(keys), self.restarts.gather(x, sizes)))
 
     def rhat_one(self, ring, t, windows):
         """``(K,)`` split-R-hat statistics of one ring whose clock reads
@@ -125,19 +198,52 @@ class _BatchedEngine:
         """``(D,)`` windowed ESS and MCSE of one ring (device tensors)."""
         return _mcse_check(ring, t, int(w), self.mf_dim)
 
+    def rhat_rows(self, rings, clocks, windows):
+        """``(B, K)`` split-R-hat statistics of the rings in ``clocks``
+        (``{b: ring clock}``), one ring at a time; ``inf`` in the other
+        rows."""
+        local = self.local
+        out = torch.full((len(local), len(windows)), torch.inf, dtype=self.dtype,
+                         device=self.device)
+        for i, b in enumerate(local):
+            if b in clocks:
+                out[i] = self.rhat_one(rings[b], clocks[b], windows)
+        return self.gather_rows(out)
+
     def rhats(self, rings, t, windows):
         """``(B, K)`` split-R-hat statistics, one ring at a time."""
-        return torch.stack([self.rhat_one(ring, t, windows) for ring in rings])
+        return self.rhat_rows(rings, dict.fromkeys(range(self.B), t), windows)
+
+    def mean_rows(self, rings, specs):
+        """``{b: (D,) mean}`` of ring ``b``'s last ``w`` iterates at ring
+        clock ``t``, for every ``b: (t, w)`` in ``specs``."""
+        mine, sizes = self._owned(specs)
+        rows = {b: self.mean_one(rings[b], *specs[b]) for b in mine}
+        return self._gather_keyed(rows, specs, sizes)
+
+    def mean_of(self, b, rings, t, w):
+        """Ring ``b``'s ``(D,)`` mean on every rank."""
+        return self.mean_rows(rings, {b: (t, w)})[b]
 
     def means(self, rings, t, ws):
         """``(B, D)`` means of each ring's last ``ws[b]`` iterates."""
-        return torch.stack([self.mean_one(ring, t, w) for ring, w in zip(rings, ws)])
+        rows = self.mean_rows(rings, {b: (t, int(w)) for b, w in enumerate(ws)})
+        return torch.stack([rows[b] for b in range(self.B)])
+
+    def mcse_rows(self, rings, specs):
+        """``{b: (ess, mcse)}`` host arrays of ring ``b``'s windowed ESS
+        and MCSE, for every ``b: (t, w)`` in ``specs``."""
+        mine, sizes = self._owned(specs)
+        pairs = {b: self.mcse_one(rings[b], *specs[b]) for b in mine}
+        effs = self._gather_keyed({b: p[0] for b, p in pairs.items()}, specs, sizes)
+        mcses = self._gather_keyed({b: p[1] for b, p in pairs.items()}, specs, sizes)
+        return {b: (effs[b].cpu().numpy(), mcses[b].cpu().numpy()) for b in sorted(specs)}
 
     def mcses(self, rings, t, ws):
         """``(B, D)`` host arrays of windowed ESS and MCSE per ring."""
-        pairs = [self.mcse_one(ring, t, w) for ring, w in zip(rings, ws)]
-        return (torch.stack([p[0] for p in pairs]).cpu().numpy(),
-                torch.stack([p[1] for p in pairs]).cpu().numpy())
+        rows = self.mcse_rows(rings, {b: (t, int(w)) for b, w in enumerate(ws)})
+        return (np.stack([rows[b][0] for b in range(self.B)]),
+                np.stack([rows[b][1] for b in range(self.B)]))
 
     def init_obj_states(self, var_params):
         return [_obj_init_state(self._objective, vp) for vp in var_params]
@@ -147,15 +253,16 @@ class _BatchedEngine:
         count (the shared ``mc_escalation`` rung), through the objective's
         ``resize_obj_state`` hook as single-run FASO's escalation does."""
         resize = getattr(self._objective, "resize_obj_state", None)
-        return [resize(st, vp) if resize is not None
+        return [st if b not in self.local
+                else resize(st, vp) if resize is not None
                 else _obj_init_state(self._objective, vp)
-                for st, vp in zip(obj_states, var_params)]
+                for b, (st, vp) in enumerate(zip(obj_states, var_params))]
 
     def check_obj_states(self, obj_states, obj_errors, k):
         """The objective's validity hook per restart. A failure is recorded
         in ``obj_errors`` (in place) instead of raised: one degenerate
         restart must not destroy the other B - 1 results."""
-        for b in range(self.B):
+        for b in self.local:
             if obj_errors[b] is not None:
                 continue
             try:
@@ -231,7 +338,14 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
     saved generator state (at ``B = 1`` into ``generator``).
     ``max_time`` (seconds): a wall-clock budget checked at segment
     boundaries; on expiry the results carry ``timed_out`` and a resumable
-    snapshot. ``mesh`` belongs to the sharded engines, which are not ported.
+    snapshot.
+
+    ``mesh`` / ``restart_axis``: the restarts split over that axis of a
+    ``DeviceMesh`` (``B`` divisible by its size); every rank calls with the
+    same arguments and gets the same results (see the module docstring).
+    ``generators`` and ``init_opt_states`` stay B long. A resume needs the
+    mesh shape of the run that saved the state, whose ``rings`` are this
+    rank's.
 
     Returns a dict with ``opt_param`` (B, D), per-restart ``k_conv`` /
     ``k_Rhat`` / ``k_stopped`` lists (None where not reached),
@@ -246,8 +360,6 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
     """
     if not isinstance(sgo, StochasticGradientOptimizer):
         raise ValueError("sgo must be a subclass of StochasticGradientOptimizer")
-    if mesh is not None:
-        raise not_ported("multistart_faso(mesh=...)", "13b")
     diagnostics = sgo._diagnostics if diagnostics is None else bool(diagnostics)
     init_params = torch.as_tensor(init_params).detach()
     B, D = init_params.shape
@@ -255,6 +367,7 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
     if not getattr(objective, "scannable", True):
         raise ValueError("multistart_faso requires a scannable objective "
                          "(host-loop objectives need single-run FASO)")
+    restarts = None if mesh is None else restart_axis_of(mesh, restart_axis, B)
     n_iters = int(n_iters)
     k_check, ESS_min, G, R, rhat_allowed = _detection_geometry(
         D, W_min, k_check, ESS_min, rhat_group, rhat_quantile, rhat_backoff,
@@ -266,7 +379,9 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
     mcse_thresholds = np.broadcast_to(np.asarray(
         0.1 if mcse_threshold is None else mcse_threshold, dtype=float), (B,)).copy()
     engine = _BatchedEngine(sgo, objective, init_params, G=G, diagnostics=diagnostics,
-                            rhat_allowed=rhat_allowed, rhat_threshold=rhat_threshold)
+                            rhat_allowed=rhat_allowed, rhat_threshold=rhat_threshold,
+                            restarts=restarts)
+    local = engine.local
     stateful = engine.stateful
     mc_escalation = None if mc_escalation is None else float(mc_escalation)
     mc_max = None
@@ -304,8 +419,9 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
                       else generators)
     if len(generators) != B:
         raise ValueError(f"{len(generators)} generators for {B} restarts")
-    # a resumed run brings its own rings
-    rings = ([torch.zeros((R, D), dtype=dtype, device=device) for _ in range(B)]
+    # a resumed run brings its own rings; this rank keeps its restarts'
+    rings = ([torch.zeros((R, D), dtype=dtype, device=device) if b in local else None
+              for b in range(B)]
              if resume_state is None else None)
     t = 0
     k = 0
@@ -344,12 +460,19 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
             _set_generator_state(g, state)
         # copies: segments write the rings in place, and the caller's
         # snapshot must stay valid
-        rings = [torch.as_tensor(r).to(init_params).clone() for r in rs["rings"]]
+        if len(rs["rings"]) != len(local):
+            raise ValueError(
+                f"resume_state holds {len(rs['rings'])} rings; this rank runs "
+                f"{len(local)} restarts: a resume needs the mesh shape of the run "
+                "that saved it")
+        rings = [None] * B
+        for b, r in zip(local, rs["rings"]):
+            rings[b] = torch.as_tensor(r).to(init_params).clone()
         if learning_rate is None:
             lr = np.asarray(rs["lr"], dtype=float).copy()
         if mcse_threshold is None:
             mcse_thresholds = np.asarray(rs["mcse_thresholds"], dtype=float).copy()
-        R = rings[0].shape[0]  # the checkpointed rings win over local sizing
+        R = rings[local[0]].shape[0]  # the checkpointed rings win over local sizing
         t = int(rs["t"])
         k = int(rs["k"])
         for name, arr in (("k_conv", k_conv), ("k_Rhat", k_Rhat),
@@ -477,7 +600,7 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
                     # an in-loop pass is always due for an MCSE check at
                     # once, which overwrites it
                     w_eff = min(int(windows[best]) + (k - ck_k), R, k)
-                    last_checked_avg[b] = ring_window_mean(run.rings[b], run.t, w_eff, G)
+                    last_checked_avg[b] = engine.mean_of(b, run.rings, run.t, w_eff)
             elif (mc_escalation is not None and ck_k > mc_escalated_at
                     and int(objective.num_mc_samples) < mc_max):
                 # verdicts dispatched before the last climb may pass but
@@ -494,7 +617,7 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
     timed_out = False
     while k < n_iters and not np.all(k_stopped >= 0):
         # the wall-clock budget at segment boundaries (FASO's contract)
-        if max_time is not None and _now() - loop_start >= float(max_time):
+        if max_time is not None and engine.agree(_now() - loop_start) >= float(max_time):
             timed_out = True
             print("WARNING: wall-clock budget ({:g} s) reached at iteration {}; "
                   "returning partial results (resumable)".format(float(max_time), k))
@@ -529,7 +652,7 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
             # matches it under the tests' stubbed clocks
             with Timer() as mcse_timer:
                 effs, mcses = engine.mcses(run.rings, run.t, W)
-            mcse_interval = mcse_timer.interval
+            mcse_interval = engine.agree(mcse_timer.interval)
             mcse_time_total += mcse_interval
             # one window-mean pass per MCSE check: stopping restarts freeze
             # it, the other due restarts keep it as their last-checked
@@ -569,26 +692,30 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
                             max(mcse_stat / mcse_thresholds[b],
                                 ESS_min / max(ess_stat, 1e-300))))
                     total_opt = resumed_opt_time + max(
-                        _now() - loop_start - mcse_time_total, 1e-9)
+                        engine.agree(_now() - loop_start) - mcse_time_total, 1e-9)
                     W_check[b] = int(_recheck_scale(
                         total_opt / k, mcse_interval / int(W[b])) * W_check[b] + 1)
             maybe_escalate()
 
     # each stopped restart's step-rule state as of its own stop; the
     # others' end-of-run state
-    opt_states_at_stop = [row if row is not None else st
-                          for row, st in zip(opt_stop_rows, run.opt_states)]
+    # (each from the rank that steps it)
+    opt_states_at_stop = engine.gather_list(
+        [row if row is not None else st for row, st in zip(opt_stop_rows, run.opt_states)],
+        device)
+    final_params = engine.gather_rows(torch.stack([run.var_params[b] for b in local]))
     # snapshot the in-flight checks before draining them, like FASO: a
     # resumed run replays them on the same schedule
     zero_row = torch.zeros(D, dtype=dtype, device=device)
     resume_snapshot = {
-        "var_params": torch.stack(run.var_params),
-        "opt_states": run.opt_states,
-        "obj_states": run.obj_states,
-        "generator_states": torch.stack([g.get_state() for g in run.generators]),
+        "var_params": final_params,
+        "opt_states": engine.gather_list(run.opt_states, device),
+        "obj_states": engine.gather_list(run.obj_states, device),
+        "generator_states": torch.stack(engine.gather_list(
+            [g.get_state() for g in run.generators])),
         "lr": run.lr.copy(),
         "mcse_thresholds": mcse_thresholds.copy(),
-        "rings": run.rings,
+        "rings": [run.rings[b] for b in local],
         "t": run.t,
         "k": k,
         "k_conv": k_conv.copy(),
@@ -608,7 +735,8 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
         "check_interval": check_interval,
         "next_check_at": next_check_at,
         "interval_adjusted_at": interval_adjusted_at,
-        "total_opt_time": resumed_opt_time + (_now() - loop_start - mcse_time_total),
+        "total_opt_time": resumed_opt_time + (engine.agree(_now() - loop_start)
+                                              - mcse_time_total),
         # fixed-size escalation-state encodings, as FASO writes them
         "mc_samples": (int(objective.num_mc_samples)
                        if mc_escalation is not None else -1),
@@ -634,6 +762,8 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
         W_final = np.where(k_conv >= 0, np.maximum(k - k_conv, 1),
                            np.maximum(last_best_W, 1)).astype(int)
         W_final = np.minimum(W_final, min(R, max(k, 1)))
+        final_rows = engine.mean_rows(run.rings, {b: (run.t, int(W_final[b]))
+                                                  for b in needs_final})
         rows = []
         for b in range(B):
             if frozen[b] is not None:
@@ -641,13 +771,13 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
             elif last_checked_avg[b] is not None:
                 rows.append(last_checked_avg[b])
             elif b in needs_final:
-                rows.append(ring_window_mean(run.rings[b], run.t, int(W_final[b]), G))
+                rows.append(final_rows[b])
             else:
                 rows.append(init_params[b])
         opt_param = torch.stack(rows)
     results = {
         "opt_param": opt_param,
-        "final_param": torch.stack(run.var_params),
+        "final_param": final_params,
         "value_history": (torch.cat(values_hist, dim=1) if values_hist
                           else torch.zeros((B, 0), dtype=dtype, device=device)),
         "k_conv": [None if v < 0 else int(v) for v in k_conv],
@@ -661,7 +791,7 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
         results["mc_escalation_history"] = np.asarray(
             mc_events, dtype=np.int64).reshape(-1, 2)
     if stateful:
-        results["obj_state_errors"] = list(obj_errors)
+        results["obj_state_errors"] = engine.gather_list(obj_errors)
     if diagnostics:
         empty = np.zeros((B, 0, D), dtype=init_params.cpu().numpy().dtype)
         results["grad_history"] = np.concatenate(grad_hist, axis=1) if grad_hist else empty

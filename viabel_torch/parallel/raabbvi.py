@@ -26,6 +26,12 @@ through one sequence of ``k_check``-step segments, and a restart whose
 MCSE stop fires does its round bookkeeping at that segment boundary and
 starts its next round at once, while the others' rounds go on
 (:func:`_multistart_raabbvi_async`).
+
+With ``mesh=`` the restarts split over the mesh's restart axis as in
+:func:`multistart_faso`: each rank steps its own restarts and runs their
+round regressions (the host HMC), the regressions' outcomes and the
+per-restart statistics are all-gathered, and every rank keeps the whole
+outer bookkeeping, so the step count, the budget and the end agree.
 """
 
 from collections import deque
@@ -38,8 +44,10 @@ from ..faso import (HMC_DEVICE, RAABBVI, _backoff_adjust, _candidate_windows, _c
                     _pad_tail, _read_host, _recheck_scale, _set_generator_state,
                     _to_host_async)
 from ..optimizers import RMSProp, StochasticGradientOptimizer
-from ..utils import Timer, not_ported
-from .multistart import _BatchedEngine, _RunState, multistart_faso, restart_generators
+from ..utils import Timer
+from .mesh import restart_axis_of
+from .multistart import (_BatchedEngine, _gather_owned, _RunState, multistart_faso,
+                         restart_generators)
 
 __all__ = ["multistart_raabbvi"]
 
@@ -89,8 +97,10 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
     ``"lockstep"``, or ``"async"`` (per-restart round clocks, see
     :func:`_multistart_raabbvi_async`; its snapshots are taken at segment
     boundaries and resume mid-round, and its results add
-    ``n_rounds_per_restart`` and ``obj_state_errors``). ``mesh`` belongs
-    to the sharded engines, which are not ported yet.
+    ``n_rounds_per_restart`` and ``obj_state_errors``). ``mesh`` /
+    ``restart_axis``: the restarts split over that axis of a
+    ``DeviceMesh`` on both schedules (see the module docstring); every
+    rank calls with the same arguments and gets the same results.
 
     Returns a dict with ``opt_param`` (B, D) final round averages,
     per-restart lists ``k_stopped_final`` (None where the termination rule
@@ -109,8 +119,6 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
                          "KL (approx.supports_kl); use multistart_faso")
     if schedule not in ("lockstep", "async"):
         raise ValueError('"schedule" must be "lockstep" or "async"')
-    if mesh is not None:
-        raise not_ported("multistart_raabbvi(mesh=...)", "13b")
     if mc_escalation is not None:
         # both schedules raise here, also with an explicit mc_max_samples
         # (where the JAX package's async leg meets an AttributeError)
@@ -126,6 +134,8 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
     init_params = torch.as_tensor(init_params).detach()
     B, D = init_params.shape
     K_max = int(K_max)
+    restarts = None if mesh is None else restart_axis_of(mesh, restart_axis, B)
+    split = dict(mesh=mesh, restart_axis=restart_axis)
     if schedule == "async":
         generators = restart_generators(generator, B, init_params.device)
         hmc_generators = [torch.Generator(HMC_DEVICE).manual_seed(g.initial_seed())
@@ -142,7 +152,8 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
                 sgo, K_max, objective, init_params, generators, hmc_generators,
                 rho=rho, learning_rate=learning_rate, mcse_threshold=mcse_threshold,
                 max_history=K_max if max_history is None else int(max_history),
-                max_time=max_time, resume_state=resume_state, **escalation)
+                max_time=max_time, resume_state=resume_state, split=split,
+                restarts=restarts, **escalation)
             if out.get("timed_out"):
                 return out
             prelude_state, async_resume = out, None
@@ -157,12 +168,15 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
             rhat_quantile=rhat_quantile, rhat_backoff=rhat_backoff, rhat_group=rhat_group,
             check_pipeline=check_pipeline, resume_state=async_resume,
             prelude_state=prelude_state, round_callback=round_callback, verbose=verbose,
-            max_time=async_max_time, **escalation)
+            max_time=async_max_time, restarts=restarts, **escalation)
     run_start = _now() if max_time is not None else None
+
+    def agree(x):
+        return x if restarts is None else restarts.agree(x)
 
     def _time_left():
         return (None if max_time is None
-                else max(float(max_time) - (_now() - run_start), 0.0))
+                else max(float(max_time) - agree(_now() - run_start), 0.0))
 
     if max_history is None:
         # pin the ring size across rounds
@@ -252,8 +266,10 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
             "avg_curr": avg_curr,
             "opt_states": list(opt_states) if opt_states is not None else [],
             "lr": lr.copy(), "mcse": mcse.copy(),
-            "generator_states": torch.stack([g.get_state() for g in generators]),
-            "hmc_generator_states": torch.stack([g.get_state() for g in hmc_generators]),
+            "generator_states": torch.stack(_gather_owned(
+                restarts, [g.get_state() for g in generators])),
+            "hmc_generator_states": torch.stack(_gather_owned(
+                restarts, [g.get_state() for g in hmc_generators])),
             "n_rounds": n_rounds,
             "k_global_steps": k_global_steps,
             "conv_iters_hist": [list(h) for h in conv_iters],
@@ -310,12 +326,12 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
             opt = multistart_faso(warm_sgo, n_iters_round, objective, avg_curr,
                                   generators=generators, learning_rate=lr_round,
                                   max_time=_time_left(), max_history=max_history,
-                                  diagnostics=False)
+                                  diagnostics=False, **split)
         else:
             opt = multistart_faso(sgo, n_iters_round, objective, avg_curr,
                                   generators=generators, learning_rate=lr_round,
                                   mcse_threshold=mcse, init_opt_states=opt_states,
-                                  max_time=_time_left(), **detection_kwargs)
+                                  max_time=_time_left(), **split, **detection_kwargs)
         if opt["timed_out"]:
             # recovery is round-granular: the interrupted round is rolled
             # back (the loop-top accounting is re-applied on resume)
@@ -332,6 +348,22 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
             # stopped restart's as of its own stop
             opt_states = opt["opt_states_at_stop"]
 
+        def round_stop(b):
+            """Restart b's stop in this round, None past its own budget."""
+            k_stopped_b = opt["k_stopped"][b]
+            return None if k_stopped_b is not None and k_stopped_b > K_rem[b] else k_stopped_b
+
+        # the regressions first, each on the rank that owns its restart
+        todo = {}
+        for b in living:
+            k_stopped_b = round_stop(b)
+            if k_stopped_b is not None and lr_hist[b]:
+                conv = conv_iters[b] + ([int(k_stopped_b)] if k_dec[b] != 0 else [])
+                todo[b] = (avg_curr[b], opt["opt_param"][b], conv)
+        terminated_by = _round_regressions(
+            helper, objective.approx, todo, hmc_generators, restarts,
+            skl_hist=skl_hist, lr_hist=lr_hist, kappa_hist=kappa_hist, c_hist=c_hist,
+            pred_hist=pred_hist, crt_hist=crt_hist)
         new_avgs = avg_curr.clone()
         for b in living:
             k_stopped_b = opt["k_stopped"][b]
@@ -343,9 +375,7 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
                 k_stopped_b = None
             elif k_stopped_b is None and round_len > K_rem[b]:
                 budget_overrun[b] = int(round_len - K_rem[b])
-            avg_prev_b = avg_curr[b]
-            avg_curr_b = opt["opt_param"][b]
-            new_avgs[b] = avg_curr_b
+            new_avgs[b] = opt["opt_param"][b]
             if k_stopped_b is not None and k_dec[b] != 0:
                 conv_iters[b].append(int(k_stopped_b))
             k_new[b] = -1 if k_stopped_b is None else int(k_stopped_b)
@@ -357,13 +387,7 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
             lr_next = lr[b] * rho
             mcse[b] *= rho
             if lr_hist[b]:
-                _fit, terminated, _rskl, _rit = helper.skl_round_update(
-                    objective.approx, avg_prev_b, avg_curr_b,
-                    skl_hist=skl_hist[b], lr_hist=lr_hist[b],
-                    conv_iters=conv_iters[b], kappa_hist=kappa_hist[b],
-                    c_hist=c_hist[b], pred_hist=pred_hist[b], crt_hist=crt_hist[b],
-                    generator=hmc_generators[b])
-                if terminated:
+                if terminated_by[b]:
                     active[b] = False
                     k_stopped_final[b] = int(k_total[b])
                     if verbose:
@@ -409,14 +433,46 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
     return results
 
 
+def _round_regressions(helper, approx, todo, hmc_generators, restarts, **hists):
+    """RAABBVI's round regression (``skl_round_update``: the SKL between
+    round averages, the weighted regression and its HMC, the termination
+    rule) of each restart in ``todo`` (``{b: (avg_prev, avg_curr,
+    conv_iters)}``), run by the rank that owns ``b`` on the ``restarts``
+    axis (every one without a split). Returns ``{b: terminated}`` on every
+    rank and brings b's appended history lists (``hists``: the keyword
+    lists of ``skl_round_update``) up to date on every rank."""
+    grown = ("skl_hist", "kappa_hist", "c_hist", "pred_hist", "crt_hist")
+    owned = range(len(hmc_generators)) if restarts is None else restarts.rows(
+        len(hmc_generators))
+    mine = {}
+    for b in sorted(todo):
+        if b not in owned:
+            continue
+        avg_prev, avg_curr, conv = todo[b]
+        _fit, terminated, _rskl, _rit = helper.skl_round_update(
+            approx, avg_prev, avg_curr, conv_iters=conv, generator=hmc_generators[b],
+            **{name: h[b] for name, h in hists.items()})
+        mine[b] = (bool(terminated), [list(hists[name][b]) for name in grown])
+    if restarts is None:
+        return {b: out[0] for b, out in mine.items()}
+    terminated_by = {}
+    if todo:
+        for part in restarts.gather_objects(mine):
+            for b, (terminated, lists) in part.items():
+                for name, values in zip(grown, lists):
+                    hists[name][b][:] = values
+                terminated_by[b] = terminated
+    return terminated_by
+
+
 def _empty_hists(B):
     return [[] for _ in range(B)]
 
 
 def _async_warm_prelude(sgo, K_max, objective, init_params, generators, hmc_generators, *,
                         rho, learning_rate, mcse_threshold, max_history, max_time,
-                        resume_state=None, mc_escalation=None, mc_max_samples=None,
-                        mc_patience=3, mc_plateau_rtol=0.05):
+                        resume_state=None, split=None, restarts=None, mc_escalation=None,
+                        mc_max_samples=None, mc_patience=3, mc_plateau_rtol=0.05):
     """Round one of an async ``init_rmsprop`` run (the JAX package's
     raabbvi.py:569-713): one lockstep :func:`multistart_faso` round on a
     plain ``RMSProp`` at each restart's starting rate with the default
@@ -442,6 +498,7 @@ def _async_warm_prelude(sgo, K_max, objective, init_params, generators, hmc_gene
     opt = multistart_faso(RMSProp(float(lr.mean())), K_max, objective, init_params,
                           generators=generators, learning_rate=lr, max_history=max_history,
                           diagnostics=False, resume_state=flight, max_time=max_time,
+                          **(split or {}),
                           mc_escalation=mc_escalation, mc_max_samples=mc_max_samples,
                           mc_patience=mc_patience, mc_plateau_rtol=mc_plateau_rtol)
     # the warm round starts the global step axis, so its ladder events
@@ -465,8 +522,8 @@ def _async_warm_prelude(sgo, K_max, objective, init_params, generators, hmc_gene
             "obj_state_errors": opt.get("obj_state_errors", [None] * B),
             "resume_state": {
                 "prelude_flight": opt["resume_state"],
-                "hmc_generator_states": torch.stack([g.get_state()
-                                                     for g in hmc_generators]),
+                "hmc_generator_states": torch.stack(_gather_owned(
+                    restarts, [g.get_state() for g in hmc_generators])),
             },
         }
         for name in ("conv_iters_hist", "learning_rate_hist", "SKL_history", "kappa_hist",
@@ -523,8 +580,8 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
                               ESS_min, k_check, max_history, rhat_threshold, rhat_quantile,
                               rhat_backoff, rhat_group, check_pipeline, resume_state=None,
                               prelude_state=None, round_callback=None, verbose=True,
-                              max_time=None, mc_escalation=None, mc_max_samples=None,
-                              mc_patience=3, mc_plateau_rtol=0.05):
+                              max_time=None, restarts=None, mc_escalation=None,
+                              mc_max_samples=None, mc_patience=3, mc_plateau_rtol=0.05):
     """Per-restart round clocks in one continuous program (the JAX
     package's raabbvi.py:716-1532).
 
@@ -584,7 +641,9 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
         int(max_history))
     gate = rhat_threshold if rhat_allowed is None else rhat_allowed
     engine = _BatchedEngine(sgo, objective, init_params, G=G, diagnostics=False,
-                            rhat_allowed=rhat_allowed, rhat_threshold=rhat_threshold)
+                            rhat_allowed=rhat_allowed, rhat_threshold=rhat_threshold,
+                            restarts=restarts)
+    local = engine.local
     if engine.stateful and not hasattr(objective, "reset_obj_state_rows"):
         raise ValueError(
             'schedule="async" with a stateful objective requires a per-restart '
@@ -657,7 +716,8 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
             # a hook that cannot reset rows raises here, not at the first
             # round advance (on a fresh state the call changes nothing)
             obj_states = objective.reset_obj_state_rows(obj_states, range(B))
-        rings = [torch.zeros((R, D), dtype=dtype, device=device) for _ in range(B)]
+        rings = [torch.zeros((R, D), dtype=dtype, device=device) if b in local else None
+                 for b in range(B)]
         t = 0
     # else: everything comes from resume_state below (fresh rings first
     # would hold two sets at once)
@@ -689,7 +749,14 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
         for g, state in zip(hmc_generators, rs["hmc_generator_states"]):
             _set_generator_state(g, state)
         # copies: segments write the rings in place
-        rings = [torch.as_tensor(r).to(init_params).clone() for r in rs["rings"]]
+        if len(rs["rings"]) != len(local):
+            raise ValueError(
+                f"resume_state holds {len(rs['rings'])} rings; this rank runs "
+                f"{len(local)} restarts: a resume needs the mesh shape of the run "
+                "that saved it")
+        rings = [None] * B
+        for b, r in zip(local, rs["rings"]):
+            rings[b] = torch.as_tensor(r).to(init_params).clone()
         t, k, k_offset = int(rs["t"]), int(rs["k"]), int(rs["k_offset"])
         lr = np.asarray(rs["lr"], dtype=float).copy()
         mcse = np.asarray(rs["mcse"], dtype=float).copy()
@@ -762,13 +829,19 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
         are copied (the next segment writes them in place) and in-flight
         verdicts are read to the host."""
         return {
-            "var_params": torch.stack(run.var_params),
-            "opt_states": [_clone_state(st) for st in run.opt_states],
-            "obj_states": [_clone_state(st) for st in run.obj_states],
-            "obj_error_flags": np.asarray([e is not None for e in obj_errors]),
-            "generator_states": torch.stack([g.get_state() for g in generators]),
-            "hmc_generator_states": torch.stack([g.get_state() for g in hmc_generators]),
-            "rings": [r.clone() if copy_rings else r for r in run.rings],
+            "var_params": engine.gather_rows(torch.stack([run.var_params[b]
+                                                          for b in local])),
+            "opt_states": engine.gather_list([_clone_state(st) for st in run.opt_states],
+                                             device),
+            "obj_states": engine.gather_list([_clone_state(st) for st in run.obj_states],
+                                             device),
+            "obj_error_flags": np.asarray([e is not None
+                                           for e in engine.gather_list(obj_errors)]),
+            "generator_states": torch.stack(engine.gather_list(
+                [g.get_state() for g in generators])),
+            "hmc_generator_states": torch.stack(engine.gather_list(
+                [g.get_state() for g in hmc_generators])),
+            "rings": [run.rings[b].clone() if copy_rings else run.rings[b] for b in local],
             "t": run.t, "k": k, "k_offset": k_offset,
             "lr": lr.copy(), "mcse": mcse.copy(),
             "K_rem": K_rem.copy(), "k_total": k_total.copy(),
@@ -787,7 +860,7 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
             "next_check_at": next_check_at,
             "interval_adjusted_at": interval_adjusted_at,
             "mcse_time_total": mcse_time_total,
-            "opt_elapsed": _now() - loop_start,
+            "opt_elapsed": engine.agree(_now() - loop_start),
             "pending_checks": [{"k": int(ck["k"]), "windows": ck["windows"],
                                 "masks": ck["masks"], "round_id": ck["round_id"],
                                 "r_hats": _read_host(ck["r_hats"])} for ck in pending],
@@ -869,7 +942,7 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
                 k_conv[b] = int(ck["k"]) - round_start[b] - best_W
                 W_check[b] = best_W
                 w_eff = min(best_W + (k - int(ck["k"])), R, ring_clock(b))
-                last_checked_avg[b] = engine.mean_one(run.rings[b], ring_clock(b), w_eff)
+                last_checked_avg[b] = engine.mean_of(b, run.rings, ring_clock(b), w_eff)
 
     def fallback_estimate(b):
         """Restart ``b``'s best estimate when its round ends without an
@@ -881,13 +954,14 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
         kb = ring_clock(b)
         if (k_conv[b] >= 0 or last_best_W[b] > 0) and kb > 0:
             W_f = max(kb - k_conv[b], 1) if k_conv[b] >= 0 else max(int(last_best_W[b]), 1)
-            return engine.mean_one(run.rings[b], kb, min(W_f, R, kb))
+            return engine.mean_of(b, run.rings, kb, min(W_f, R, kb))
         return avg_prev[b]
 
-    def advance_restart(b):
+    def advance_restart(b, terminated_by):
         """Restart ``b``'s MCSE stop fired: its round bookkeeping (the
-        reference's optimization.py:812-917 for this restart alone). Returns
-        its next round's start, or None if it retired."""
+        reference's optimization.py:812-917 for this restart alone), with
+        its regression's outcome in ``terminated_by``. Returns its next
+        round's start, or None if it retired."""
         k_new_b = int(k_stopped[b])
         avg_b = frozen[b]
         if k_new_b > K_rem[b]:
@@ -904,12 +978,7 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
         lr_next = lr[b] * rho
         mcse[b] *= rho
         if lr_hist[b]:
-            _fit, terminated, _rskl, _rit = helper.skl_round_update(
-                objective.approx, avg_prev[b], avg_b, skl_hist=skl_hist[b],
-                lr_hist=lr_hist[b], conv_iters=conv_iters[b], kappa_hist=kappa_hist[b],
-                c_hist=c_hist[b], pred_hist=pred_hist[b], crt_hist=crt_hist[b],
-                generator=hmc_generators[b])
-            if terminated:
+            if terminated_by[b]:
                 k_stopped_final[b] = int(k_total[b])
                 settle(b, avg_b)
                 if verbose:
@@ -976,7 +1045,7 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
     run_start = _now() if max_time is not None else None
     timed_out = False
     while np.any(active):
-        if max_time is not None and _now() - run_start >= float(max_time):
+        if max_time is not None and engine.agree(_now() - run_start) >= float(max_time):
             timed_out = True
             if verbose:
                 print("WARNING: wall-clock budget ({:g} s) reached at iteration {}; "
@@ -1004,12 +1073,12 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
             K_pad = 1 << int(np.ceil(np.log2(max(len(union), 1))))
             windows = np.concatenate([union, np.full(K_pad - len(union), union[0])])
             masks = np.zeros((B, K_pad), dtype=bool)
-            r_hats = torch.full((B, K_pad), torch.inf, dtype=dtype, device=device)
             for b, _ in eligible:
                 masks[b, :len(union)] = np.isin(union, cand_sets[b])
-                # every window of the union on b's ring (a window longer
-                # than b's round reads garbage that b's mask drops)
-                r_hats[b] = engine.rhat_one(run.rings[b], int(kb[b]), windows)
+            # every window of the union on each eligible ring (a window
+            # longer than b's round reads garbage that b's mask drops)
+            r_hats = engine.rhat_rows(run.rings, {b: int(kb[b]) for b, _ in eligible},
+                                      windows)
             pending.append({"k": k, "windows": windows, "masks": masks,
                             "round_id": round_id.copy(), "r_hats": _to_host_async(r_hats)})
         while pending and k - int(pending[0]["k"]) >= check_pipeline * k_check:
@@ -1023,14 +1092,16 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
         if due:
             W = np.minimum(np.maximum(kb - k_conv, 1), np.maximum(np.minimum(R, kb), 1))
             # faso's Timer, so the tests' stubbed MCSE cost holds here too
+            specs = {b: (int(kb[b]), int(W[b])) for b in due}
             with Timer() as mcse_timer:
-                pairs = {b: engine.mcse_one(run.rings[b], int(kb[b]), W[b]) for b in due}
-                effs = {b: p[0].cpu().numpy() for b, p in pairs.items()}
-                mcses = {b: p[1].cpu().numpy() for b, p in pairs.items()}
-            mcse_interval = mcse_timer.interval
+                pairs = engine.mcse_rows(run.rings, specs)
+                effs = {b: p[0] for b, p in pairs.items()}
+                mcses = {b: p[1] for b, p in pairs.items()}
+            mcse_interval = engine.agree(mcse_timer.interval)
             mcse_time_total += mcse_interval
+            avgs = engine.mean_rows(run.rings, specs)
             for b in due:
-                avg = engine.mean_one(run.rings[b], int(kb[b]), W[b])
+                avg = avgs[b]
                 if rhat_allowed is None:
                     mcse_stat = float(np.max(mcses[b]))
                     ess_stat = float(np.min(effs[b]))
@@ -1048,19 +1119,32 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
                         # a ring-capped window: a stalled gate is an SNR wall
                         mc_plateau_m[b].append(_clamp_stat(
                             max(mcse_stat / mcse[b], ESS_min / max(ess_stat, 1e-300))))
-                    total_opt = max(_now() - loop_start - mcse_time_total, 1e-9)
+                    total_opt = max(engine.agree(_now() - loop_start) - mcse_time_total,
+                                    1e-9)
                     W_check[b] = int(_recheck_scale(
                         total_opt / k, mcse_interval / int(W[b])) * W_check[b] + 1)
             maybe_escalate()
 
-        # round advances and budget enforcement, restart by restart
+        # the round regressions first, each on the rank that owns its
+        # restart; then round advances and budget enforcement, restart by
+        # restart
+        todo = {}
+        for b in range(B):
+            if (active[b] and k_stopped[b] >= 0 and k_stopped[b] <= K_rem[b]
+                    and lr_hist[b]):
+                conv = conv_iters[b] + ([int(k_stopped[b])] if k_dec[b] != 0 else [])
+                todo[b] = (avg_prev[b], frozen[b], conv)
+        terminated_by = _round_regressions(
+            helper, objective.approx, todo, hmc_generators, restarts,
+            skl_hist=skl_hist, lr_hist=lr_hist, kappa_hist=kappa_hist, c_hist=c_hist,
+            pred_hist=pred_hist, crt_hist=crt_hist)
         advanced = []
         settled_any = False
         for b in range(B):
             if not active[b]:
                 continue
             if k_stopped[b] >= 0:
-                new_init = advance_restart(b)
+                new_init = advance_restart(b, terminated_by)
                 if new_init is None:
                     settled_any = True
                 else:

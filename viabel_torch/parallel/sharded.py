@@ -22,18 +22,18 @@ controller) never meets are handled here:
 ``multistart_optimize`` is the plain multistart: B restarts of the
 fixed-learning-rate loop, each with a ring iterate average, stepped in
 lockstep as B single-restart steps a step (see
-:mod:`viabel_torch.parallel.multistart` for why not ``vmap``). Its
-restart-sharded and MC-sharded layouts are not ported yet.
+:mod:`viabel_torch.parallel.multistart` for why not ``vmap``). With a
+mesh, the restarts split over its restart axis and each restart's MC
+samples optionally over a second axis.
 """
 
 import math
 
 import torch
-import torch.distributed as dist
 
-from ..objectives import ExclusiveKL, _ShardAxis
+from ..objectives import ExclusiveKL
 from ..optimizers import _obj_check_state, _obj_init_state
-from ..utils import not_ported
+from .mesh import MeshAxis, restart_axis_of
 from .multistart import restart_generators
 
 __all__ = ["ShardedExclusiveKL", "shard_mc_objective", "multistart_optimize"]
@@ -42,17 +42,6 @@ __all__ = ["ShardedExclusiveKL", "shard_mc_objective", "multistart_optimize"]
 def _round_up(value, n):
     """``value`` rounded up to a multiple of ``n``."""
     return int(math.ceil(int(value) / n)) * n
-
-
-def _agree(axis, device, x):
-    """Rank 0's ``x`` on every rank of ``axis`` (one broadcast of a float64
-    scalar); ``x`` itself on a one-rank axis, where there is no one to
-    disagree with."""
-    if axis.n == 1:
-        return x
-    t = torch.tensor([float(x)], dtype=torch.float64, device=device)
-    dist.broadcast(t, src=dist.get_global_rank(axis.group, 0), group=axis.group)
-    return float(t[0])
 
 
 class ShardedExclusiveKL(ExclusiveKL):
@@ -68,7 +57,7 @@ class ShardedExclusiveKL(ExclusiveKL):
 
     def __init__(self, approx, model, num_mc_samples, mesh, axis_name="mc",
                  use_path_deriv=False):
-        self._axis = _ShardAxis(mesh, axis_name)
+        self._axis = MeshAxis(mesh, axis_name)
         self._axis.local_count(int(num_mc_samples))
         super().__init__(approx, model, num_mc_samples, use_path_deriv=use_path_deriv)
         self._mesh, self._axis_name = mesh, axis_name
@@ -87,7 +76,7 @@ class ShardedExclusiveKL(ExclusiveKL):
 
     def agree(self, x):
         """Rank 0's reading of a host decision (see the module docstring)."""
-        return _agree(self._axis, self.approx.device, x)
+        return self._axis.agree(x)
 
 
 class _MCShardedObjective:
@@ -100,7 +89,7 @@ class _MCShardedObjective:
 
     def __init__(self, objective, mesh, axis_name):
         self._inner = objective
-        self._axis = _ShardAxis(mesh, axis_name)
+        self._axis = MeshAxis(mesh, axis_name)
         build_stateful = getattr(objective, "mc_sharded_step_with_state", None)
         if build_stateful is not None:
             self._step = build_stateful(mesh, axis_name)
@@ -157,7 +146,7 @@ class _MCShardedObjective:
 
     def agree(self, x):
         """Rank 0's reading of a host decision (see the module docstring)."""
-        return _agree(self._axis, self.approx.device, x)
+        return self._axis.agree(x)
 
     @property
     def approx(self):
@@ -215,8 +204,14 @@ def multistart_optimize(sgo, n_iters, objective, init_params, generator=None,
     generator : torch.Generator, optional
         Seeds one generator a restart
         (:func:`~viabel_torch.parallel.multistart.restart_generators`).
-    mesh, restart_axis, mc_axis
-        The sharded layouts; not ported yet.
+    mesh : DeviceMesh, optional
+        Restarts split over its axis ``restart_axis``: rank ``r`` of that
+        axis runs rows ``[r B/P, (r+1) B/P)`` with their own generators (a
+        row does not depend on ``P``), and the results are all-gathered
+        in restart order. ``mc_axis`` names a second axis over which each
+        restart's MC samples are sharded
+        (:func:`shard_mc_objective`), the restart x mc layout. ``B`` must
+        be divisible by the restart axis size.
 
     Each restart's iterate average covers its last ``(n_iters - 1) *
     iterate_avg_prop`` iterates, as in the plain loop. The step is
@@ -226,8 +221,6 @@ def multistart_optimize(sgo, n_iters, objective, init_params, generator=None,
     Returns a dict with ``opt_param`` (n_restarts, D) iterate averages,
     ``final_param`` and ``value_history`` (n_restarts, n_iters).
     """
-    if mesh is not None or mc_axis is not None:
-        raise not_ported("multistart_optimize(mesh=..., mc_axis=...)", "13b")
     init_params = torch.as_tensor(init_params).detach()
     B, D = init_params.shape
     if _obj_init_state(objective, init_params[0]):
@@ -236,22 +229,35 @@ def multistart_optimize(sgo, n_iters, objective, init_params, generator=None,
             "the plain multistart scan cannot thread it — use "
             "multistart_faso / multistart_raabbvi (or bbvi(num_restarts=..., "
             "adaptive=True))")
-    generators = restart_generators(generator, B, init_params.device)
+    rows = range(B)
+    if mesh is not None:
+        restarts = restart_axis_of(mesh, restart_axis, B)
+        rows = restarts.rows(B)
+        if mc_axis is not None:
+            if getattr(objective, "mc_sharded_step", None) is None:
+                raise ValueError(f"{type(objective).__name__} does not support MC-axis "
+                                 "sharding (no mc_sharded_step)")
+            objective = shard_mc_objective(objective, mesh, mc_axis)
+    generators = restart_generators(generator, B, init_params.device)[rows.start:rows.stop]
     n_iters = int(n_iters)
     lr = sgo._learning_rate
     iap = sgo._iterate_avg_prop
     window = max(1, int((n_iters - 1) * iap)) if iap is not None else 1
-    var_params = list(init_params.clone())
+    n_local = len(rows)
+    var_params = list(init_params[rows.start:rows.stop].clone())
     states = [sgo.init_state(vp) for vp in var_params]
-    rings = [init_params.new_zeros((window, D)) for _ in range(B)]
-    values = [[] for _ in range(B)]
+    rings = [init_params.new_zeros((window, D)) for _ in range(n_local)]
+    values = [[] for _ in range(n_local)]
     for i in range(n_iters):
-        for b in range(B):
+        for b in range(n_local):
             var_params[b], states[b], _, value, _, _ = sgo.step(
                 objective, var_params[b], states[b], {}, generators[b], lr)
             rings[b][i % window] = var_params[b]
             values[b].append(value)
     count = min(n_iters, window)
-    return {"opt_param": torch.stack([ring.sum(dim=0) / count for ring in rings]),
-            "final_param": torch.stack(var_params),
-            "value_history": torch.stack([torch.stack(v) for v in values])}
+    out = {"opt_param": torch.stack([ring.sum(dim=0) / count for ring in rings]),
+           "final_param": torch.stack(var_params),
+           "value_history": torch.stack([torch.stack(v) for v in values])}
+    if mesh is not None:
+        out = {name: restarts.gather(x) for name, x in out.items()}
+    return out

@@ -35,7 +35,6 @@ import torch
 
 from .objectives import _MultinomialResampler
 from .psis import psislw
-from .utils import not_ported
 
 __all__ = ["pathfinder", "multipath_pathfinder", "pathfinder_init"]
 
@@ -90,11 +89,21 @@ def _hess_mul(alpha, S_w, Y_w, mask, v):
     return alpha * v + (B @ (W @ (B.mT @ v[..., None])))[..., 0]
 
 
+def _per_path(model, x):
+    """``model`` at ``x (M, ..., d)``, one call a path: a path's numbers
+    then do not depend on which other paths share its batch (a batched
+    model product rounds by the batch's shape), so a path split over
+    ranks (``multipath_pathfinder(mesh=...)``) computes what it computes
+    in the whole batch."""
+    return torch.stack([model(xm.reshape(-1, xm.shape[-1])).reshape(xm.shape[:-1])
+                        for xm in x])
+
+
 def _value_and_grad(model, x):
-    """``model`` and its gradient at the rows of ``x``."""
+    """``model`` and its gradient at the rows of ``x`` (one a path)."""
     with torch.enable_grad():
         x = x.detach().requires_grad_(True)
-        logp = model(x)
+        logp = _per_path(model, x[:, None, :])[:, 0]
         (g,) = torch.autograd.grad(torch.sum(logp), x)
     return logp.detach(), g
 
@@ -138,7 +147,7 @@ def _lbfgs_path(model, x0, max_iters, history, init_step, max_halvings=_MAX_HALV
         ts = t0[:, None] * shrink                                # (M, 21)
         trials = x[:, None, :] + ts[..., None] * direction[:, None, :]
         with torch.no_grad():
-            vals = model(trials.reshape(-1, d)).reshape(M, -1)
+            vals = _per_path(model, trials)
         accept = vals >= logp[:, None] + armijo_c1 * ts * slope[:, None]
         first = torch.argmax(accept.to(torch.int8), dim=-1)
         n = torch.where(torch.any(accept, dim=-1), first, max_halvings)
@@ -267,24 +276,31 @@ def _check_model(model):
 
 
 def _pathfinder_paths(model, x0, generator, *, max_iters, history, n_elbo_draws,
-                      n_draws, init_step, base_sampler):
+                      n_draws, init_step, base_sampler, rows=None):
     """M single-path Pathfinders from the rows of ``x0 (M, d)``: the L-BFGS
     paths, every point's factored Gaussian, the ELBO scoring in one model
     call, and ``n_draws`` draws from each path's best Gaussian. The ELBO
     draws come first, ``(M, L+1, n_elbo_draws, d)`` in one block, then the
-    final ``(M, n_draws, d)``."""
+    final ``(M, n_draws, d)``.
+
+    ``rows`` (a range of the M paths) runs those paths only; the draws of
+    the whole batch are made and the rows' kept, so a path sees the
+    numbers it sees in the whole batch."""
     _check_model(model)
-    M, d = x0.shape
+    M_all, d = x0.shape
+    keep = slice(None) if rows is None else slice(rows.start, rows.stop)
+    x0 = x0[keep]
+    M = x0.shape[0]
     dtype, device = x0.dtype, x0.device
     xs, gs, logps, alphas, valid = _lbfgs_path(model, x0, max_iters, history, init_step)
     S_w, Y_w, mask = _pair_windows(xs, gs, valid, history)
     qs = _factored_gaussian(xs, gs, alphas, S_w, Y_w, mask)
     ok = qs[-1]
     L1 = xs.shape[1]
-    z = _normal(base_sampler, generator, (M, L1, n_elbo_draws, d), dtype, device)
+    z = _normal(base_sampler, generator, (M_all, L1, n_elbo_draws, d), dtype, device)[keep]
     draws, log_q = _sample_factored(qs, z)                    # (M, L1, K, d)
     with torch.no_grad():
-        log_p = model(draws.reshape(-1, d)).reshape(M, L1, n_elbo_draws)
+        log_p = _per_path(model, draws)
     elbo = torch.mean(log_p - log_q, dim=-1)
     finite = torch.all(torch.isfinite(draws.reshape(M, L1, -1)), dim=-1) \
         & torch.isfinite(elbo)
@@ -292,10 +308,10 @@ def _pathfinder_paths(model, x0, generator, *, max_iters, history, n_elbo_draws,
     best = torch.argmax(elbo, dim=-1)                          # (M,)
     rows = torch.arange(M, device=device)
     best_q = tuple(a[rows, best] for a in qs)
-    z = _normal(base_sampler, generator, (M, n_draws, d), dtype, device)
+    z = _normal(base_sampler, generator, (M_all, n_draws, d), dtype, device)[keep]
     samples, log_q_best = _sample_factored(best_q, z)
     with torch.no_grad():
-        log_p_best = model(samples.reshape(-1, d)).reshape(M, n_draws)
+        log_p_best = _per_path(model, samples)
     return {
         "samples": samples,
         "log_q": log_q_best,
@@ -368,26 +384,45 @@ def multipath_pathfinder(model, init_points, generator=None, *, max_iters=60,
 
     ``resampler`` is the hook that draws the resampling indices,
     ``choice(generator, p, n)`` (default: ``torch.multinomial`` with
-    replacement). The path axis over a device mesh (``mesh=``,
-    ``shard_axis=``) is not ported.
+    replacement).
+
+    ``mesh=`` splits the paths over its axis ``shard_axis`` (default: the
+    mesh's first axis; M must be divisible by its size): each rank runs
+    its M / P paths, drawing the whole batch's base normals and keeping
+    its paths' rows, and the pooled draws, ``log_p``, ``log_q`` and the
+    per-path results are all-gathered before the one PSIS smoothing.
+    Every rank calls with the same arguments and generator state, so
+    every rank resamples alike and returns the unsharded run's results.
 
     Returns a dict: resampled ``samples (n_draws, d)`` (only with
     ``resample``), the pooled draws' smoothed ``log_weights``, ``khat``,
     the per-path ``elbo (M,)`` and ``best_l (M,)``, and the pooled
     ``pool_samples``, ``pool_log_p`` and ``pool_log_q``.
     """
-    if mesh is not None or shard_axis is not None:
-        raise not_ported("multipath_pathfinder(mesh=...)", "13b")
     inits = torch.as_tensor(init_points)
     if inits.dim() != 2:
         raise ValueError("init_points must be (n_paths, d)")
+    M, d = inits.shape
+    paths = rows = None
+    if mesh is not None:
+        from .parallel.mesh import MeshAxis
+        axis = shard_axis if shard_axis is not None else mesh.mesh_dim_names[0]
+        if axis not in mesh.mesh_dim_names:
+            raise KeyError(axis)  # the JAX package's mesh.shape[axis]
+        paths = MeshAxis(mesh, axis)
+        if M % paths.n:
+            raise ValueError(f"n_paths={M} must be divisible by the {axis!r} axis "
+                             f"size {paths.n}")
+        rows = paths.rows(M)
     if generator is None:
         generator = torch.Generator(inits.device).manual_seed(0)
-    M, d = inits.shape
     res = _pathfinder_paths(model, inits, generator, max_iters=int(max_iters),
                             history=int(history), n_elbo_draws=int(n_elbo_draws),
                             n_draws=int(n_draws_per_path), init_step=1.0,
-                            base_sampler=base_sampler)
+                            base_sampler=base_sampler, rows=rows)
+    if paths is not None:
+        res = {name: paths.gather(res[name])
+               for name in ("samples", "log_p", "log_q", "elbo", "best_l")}
     pool = res["samples"].reshape(M * int(n_draws_per_path), d)
     log_p = res["log_p"].reshape(-1)
     log_q = res["log_q"].reshape(-1)
