@@ -124,6 +124,14 @@ MC_RTOL, MC_FASO_ITERS = 1e-6, 1000
 #: on the flagship with a 600-row ring; kernel 1 on the flagship ring split
 #: into FS_SHARDS coordinate shards of FS_GROUP-row groups
 FS_ITERS, FS_RING_ROWS, FS_SHARDS, FS_GROUP = 1000, 600, 4, 50
+#: [fsdp]: FSDPFullRankELBO at the flagship width (steps a run; its
+#: largest parameter and final-value difference from the unsharded step
+#: on the same draws), then at d = 30,000 (the width fsdp.py names) from
+#: a narrow start, at a rate whose walk of the d^2 / 2 off-diagonal
+#: entries stays below the diagonal's gain (lr * d < 2), so the value
+#: falls within FSDP_BIG_ITERS steps
+FSDP_ITERS, FSDP_TOL = 2000, 1e-3
+FSDP_BIG_DIM, FSDP_BIG_ITERS, FSDP_BIG_LR, FSDP_BIG_LOG_DIAG = 30000, 50, 2e-5, -2.0
 PFS_PATHS = 4  # [pathfinder_sharded]: paths at [pathfinder]'s d, L and J
 #: NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, and FLOP/s outside the
 #: tensor cores by element type
@@ -2060,9 +2068,12 @@ def phase_dcp(path_launches, uninterrupted):
     """The [faso_sharded] run stopped halfway, its resume state (its ring
     shard, one rank) written with save_pytree_orbax, read back with the
     state as the template and resumed to the end: equal to the
-    uninterrupted run, as [resume] holds it. Bytes and seconds of the save
-    and the load."""
+    uninterrupted run, as [resume] holds it. Then every saved rank's tree
+    read without a template, joined by merge_resume_states and resumed
+    without a mesh: equal to the resumed run. Bytes and seconds of the
+    save and the loads."""
     from viabel_torch.checkpoint import load_pytree_orbax, save_pytree_orbax
+    from viabel_torch.faso import merge_resume_states
     with one_rank_group("mc") as mesh, fixed_mcse_cost():
         part, wall, launches = sharded_faso(mesh, FS_ITERS // 2, ring_mesh=mesh)
         report_run("[dcp] [part]", part, wall, launches)
@@ -2082,9 +2093,17 @@ def phase_dcp(path_launches, uninterrupted):
             restored = load_pytree_orbax(path, like=rs)
             torch.cuda.synchronize()
             load_s = time.perf_counter() - start
+            # every saved rank's tree, without a template, joined into the
+            # whole state that resumes without a mesh
+            start = time.perf_counter()
+            whole = merge_resume_states(load_pytree_orbax(path, device=DEVICE, rank="all"))
+            torch.cuda.synchronize()
+            merge_s = time.perf_counter() - start
         log(f"[dcp] save_seconds={save_s:.3f} load_seconds={load_s:.3f} bytes={nbytes} "
-            f"files={files}")
-        if not torch.equal(restored["ring"], rs["ring"]):
+            f"files={files} load_all_and_merge_seconds={merge_s:.3f} "
+            f"merged_ring_columns={whole['ring_columns'].tolist()}")
+        if not (torch.equal(restored["ring"], rs["ring"])
+                and torch.equal(whole["ring"], rs["ring"])):
             raise AssertionError("[dcp] the ring shard did not come back")
         del rs
         torch.cuda.empty_cache()
@@ -2096,6 +2115,14 @@ def phase_dcp(path_launches, uninterrupted):
             raise AssertionError("[dcp] the resumed run ran no R-hat check")
         got = faso_summary(resumed)
         del resumed, restored
+        torch.cuda.empty_cache()
+        unsplit, wall, launches = sharded_faso(mesh, FS_ITERS, resume_state=whole)
+        report_run("[dcp] [resumed without a mesh from the merged state]", unsplit, wall,
+                   launches)
+        for name, count in launches.items():
+            path_launches["dcp"][name] = path_launches["dcp"].get(name, 0) + count
+        same_faso("[dcp] merged and resumed without a mesh", faso_summary(unsplit), got)
+        del unsplit, whole
     keys = ("k_conv", "k_Rhat", "k_stopped")
     rel = max_rel_err(got["opt_param"], uninterrupted["opt_param"].cpu())
     log(f"[dcp] resumed k_conv/k_Rhat/k_stopped={[got[k] for k in keys]} uninterrupted="
@@ -2235,6 +2262,132 @@ def phase_pathfinder_sharded():
         f"unsharded_ms={plain_ms:.3f} ({plain_ms / M:.3f} per path)")
 
 
+class StepTable:
+    """Base sampler handing out block ``k`` of a ``(steps, S, d)`` table at
+    its ``k``-th call."""
+
+    def __init__(self, table):
+        self.table, self.pos = table, 0
+
+    def normal(self, generator, n_samples, width, dtype, device):
+        self.pos += 1
+        return self.table[self.pos - 1, :n_samples, :width].to(device=device, dtype=dtype)
+
+
+def phase_fsdp(card):
+    """FSDPFullRankELBO on a one-rank (fsdp=1, mc=1) NCCL group: at the
+    flagship width (logistic regression d = 1000, n = 512, S = 10, f32, lr
+    0.001) FSDP_ITERS steps on a table of draws against the unsharded
+    ExclusiveKL(FullRankGaussian(1000)) + RMSProp steps on the same draws,
+    timed in alternating pairs, and gather_pipeline=2 against the plain
+    path; then at d = 30,000 FSDP_BIG_ITERS steps on the generator's
+    draws: steps/s, device ms a step by CUDA events, peak memory, and a
+    finite, falling value. No kernel of the port runs on this path (the
+    JAX trainer has no Pallas kernel); the launches are read to show it.
+    With one rank the all-gather is a copy: the pipeline's overlap cannot
+    show here."""
+    import viabel_torch as vt
+    from viabel_torch.parallel import FSDPFullRankELBO
+    d, S = FLAGSHIP_DIM, 10
+    table = torch.randn((FSDP_ITERS, S, d), generator=torch.Generator(DEVICE).manual_seed(98),
+                        device=DEVICE)
+    model = flagship_model()
+    with one_rank_group("fsdp", "mc") as mesh:
+        def fsdp_run(pipeline=None):
+            trainer = FSDPFullRankELBO(d, model, S, mesh, mc_axis="mc",
+                                       learning_rate=FLAGSHIP_LR, gather_pipeline=pipeline)
+            params = trainer.init_params(torch.float32)
+            state = trainer.init_opt_state(params)
+            values = torch.empty(FSDP_ITERS, device=DEVICE)
+            for k in range(FSDP_ITERS):
+                params, state, values[k] = trainer.step(params, state, draws=table[k])
+            return trainer.gather_params(params), values
+
+        def unsharded_run():
+            family = vt.FullRankGaussian(d, base_sampler=StepTable(table), device=DEVICE,
+                                         dtype=torch.float32)
+            objective, sgo = vt.ExclusiveKL(family, model, S), vt.RMSProp(FLAGSHIP_LR)
+            x = family.init_param()
+            state = sgo.init_state(x)
+            values = torch.empty(FSDP_ITERS, device=DEVICE)
+            for k in range(FSDP_ITERS):
+                x, state, _, values[k], _, _ = sgo.step(objective, x, state, {}, None,
+                                                         FLAGSHIP_LR)
+            return (x[:d], x[d:].view(d, d)), values
+
+        runs, rates = {}, {"fsdp": [], "unsharded": [], "fsdp_pipelined": []}
+        for name, fn in (("fsdp", fsdp_run), ("unsharded", unsharded_run),
+                         ("fsdp", fsdp_run), ("unsharded", unsharded_run),
+                         ("fsdp_pipelined", lambda: fsdp_run(2))):
+            out, wall, launches = timed_run(fn)
+            rates[name].append(FSDP_ITERS / wall)
+            if any(launches.values()):
+                raise AssertionError(f"[fsdp] {name} launched a kernel: {launches}")
+            runs[name] = out
+        (mu, theta), values = runs["fsdp"]
+        first, last = float(values[:200].mean()), float(values[-200:].mean())
+        log(f"[fsdp] [flagship] d={d} S={S} steps={FSDP_ITERS} steps_per_s in alternating "
+            f"pairs fsdp={[round(r, 2) for r in rates['fsdp']]} unsharded="
+            f"{[round(r, 2) for r in rates['unsharded']]} pipelined="
+            f"{[round(r, 2) for r in rates['fsdp_pipelined']]} first_200_avg_value={first:.6f} "
+            f"last_200_avg_value={last:.6f} launches=0 card={card!r}")
+        if not (torch.isfinite(values).all() and torch.isfinite(theta).all()):
+            raise AssertionError("[fsdp] non-finite value or parameter")
+        for other in ("unsharded", "fsdp_pipelined"):
+            (mu_o, theta_o), values_o = runs[other]
+            errs = (float((mu - mu_o).abs().max()), float((theta - theta_o).abs().max()),
+                    abs(float(values[-1]) - float(values_o[-1])))
+            log(f"[fsdp] [flagship] against {other}: max_abs_diff mu={errs[0]:.3e} "
+                f"theta={errs[1]:.3e} final_value={errs[2]:.3e} (final value "
+                f"{float(values[-1]):.6f}; limits {FSDP_TOL} and {FSDP_TOL} * |value|)")
+            if not (errs[0] <= FSDP_TOL and errs[1] <= FSDP_TOL
+                    and errs[2] <= FSDP_TOL * abs(float(values[-1]))):
+                raise AssertionError(f"[fsdp] the plain path differs from {other}: {errs}")
+        del runs, table, mu, theta, values
+        torch.cuda.empty_cache()
+
+        D = FSDP_BIG_DIM
+        big = vt.zoo.logistic_regression(dim=D, n_data=N_DATA, device=DEVICE,
+                                          dtype=torch.float32)[0]
+        torch.cuda.reset_peak_memory_stats()
+        trainer = FSDPFullRankELBO(D, big, S, mesh, mc_axis="mc", learning_rate=FSDP_BIG_LR,
+                                   init_log_diag=FSDP_BIG_LOG_DIAG)
+        params = trainer.init_params(torch.float32)
+        state = trainer.init_opt_state(params)
+        gen = torch.Generator(DEVICE).manual_seed(99)
+        values = torch.empty(FSDP_BIG_ITERS, device=DEVICE)
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(FSDP_BIG_ITERS)]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for k in range(FSDP_BIG_ITERS):
+            events[k][0].record()
+            params, state, values[k] = trainer.step(params, state, gen)
+            events[k][1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        size = params[1].element_size()
+        # by the step's passes over d x d matrices (each 3.6 GB in f32):
+        # tril 2, product 1, gradient product 1, tril_ 2, nu 5 (2 on the
+        # first step), denominator 4, addcdiv 4
+        nbytes = 19 * D * D * size
+        first, last = float(values[:10].mean()), float(values[-10:].mean())
+        log(f"[fsdp] [d={D}] S={S} steps={FSDP_BIG_ITERS} lr={FSDP_BIG_LR} "
+            f"init_log_diag={FSDP_BIG_LOG_DIAG} wall_s={wall:.3f} steps_per_s="
+            f"{FSDP_BIG_ITERS / wall:.3f} device_ms_per_step median="
+            f"{statistics.median(step_ms):.3f} first={step_ms[0]:.3f} min={min(step_ms):.3f} "
+            f"max={max(step_ms):.3f} bytes_per_step_reckoned={nbytes} "
+            f"(bound_ms={nbytes / PEAK_BYTES_PER_S * 1e3:.3f}) max_memory_allocated_bytes="
+            f"{torch.cuda.max_memory_allocated()} first_10_avg_value={first:.4f} "
+            f"last_10_avg_value={last:.4f} card={card!r}")
+        if not torch.isfinite(values).all() or not last < first:
+            raise AssertionError(f"[fsdp] d={D}: the value is not finite and falling "
+                                 f"({first} -> {last})")
+        del trainer, params, state, big
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -2294,6 +2447,9 @@ def main():
     phase_multistart_sharded(path_launches)
     phase_pathfinder_sharded()
     log(f"[sharded] the four sharded phases took {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    phase_fsdp(smi)
+    log(f"[fsdp] the phase took {time.perf_counter() - start:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         # the main path's launches and those of this slice's paths, each

@@ -1,10 +1,12 @@
 """The Orbax pair over ``torch.distributed.checkpoint`` in one process with
 no process group (tests/test_checkpoint.py's round trip, overwrite and
 real ``resume_state`` through both backends), and the sharded engines'
-refusals, each raised before any collective with the JAX package's
-exception: a restart or path count that does not divide, a mesh without
-the named axis, and a resume on another mesh shape. A stand-in object
-plays a two-rank mesh: the refusals read only its axis names and sizes.
+refusals, each raised before any collective: a restart or path count
+that does not divide and a mesh without the named axis (the JAX
+package's exception), and a resume from one rank's share of a sharded
+state that was not joined with ``merge_resume_states`` or from a state
+of another run. A stand-in object plays a two-rank mesh: the refusals
+read only its axis names and sizes.
 """
 
 import numpy as np
@@ -103,13 +105,15 @@ def test_dcp_serializes_real_resume_state(tmp_path):
 @pytest.mark.parametrize("D,n,dtype,bounds", [
     (1001000, 4, torch.float32, [0, 250248, 500496, 750744, 1001000]),
     (10, 2, torch.float64, [0, 4, 10]), (30, 2, torch.float64, [0, 14, 30]),
-    (7, 1, torch.float32, [0, 7])])
+    (7, 1, torch.float32, [0, 7]), (3, 2, torch.float64, [0, 1, 3]),
+    (2, 4, torch.float32, [0, 0, 1, 1, 2])])
 def test_column_split_aligns_to_16_bytes(D, n, dtype, bounds):
     """Inner boundaries on multiples of 4 float32 or 2 float64 columns, the
-    last shard taking the remainder; a split with an empty shard raises."""
+    last shard taking the remainder; where that would leave a shard empty,
+    the even split, with zero-width shards where D is below the rank
+    count."""
     assert column_split(D, n, dtype) == bounds
-    with pytest.raises(ValueError, match="cannot be split"):
-        column_split(3, 2, torch.float32)
+    assert column_split(3, 2, torch.float32) == [0, 1, 3]
 
 
 def _objective():
@@ -137,25 +141,44 @@ def test_counts_that_do_not_divide_raise(route):
 
 @pytest.mark.parametrize("route", ["FASO", "multistart_faso", "multistart_raabbvi_lockstep"])
 def test_resume_on_another_mesh_shape_raises(route):
-    """A resume state saved without a split, resumed with a two-rank split
-    (FASO's ring columns, the multistart engines' ring count): ValueError
-    naming the mesh shape, before any collective."""
+    """A resume state resumes on any mesh shape once whole; what still
+    raises ValueError, before any collective: one rank's share of a
+    two-rank state (FASO's ring columns, the multistart engines' rings)
+    resumed without joining it (merge_resume_states), on either mesh
+    shape, and a whole state of another D or restart count."""
     obj, dim = _objective()
     x0 = torch.zeros((2, 2 * dim), **F64)
     kw = dict(W_min=50, k_check=50, max_history=200)
-    with pytest.raises(ValueError, match="mesh shape"):
-        if route == "FASO":
-            state = vt.FASO(vt.RMSProp(0.05), **kw).optimize(
-                100, obj, x0[0], generator=torch.Generator())["resume_state"]
-            vt.FASO(vt.RMSProp(0.05), mesh=TwoRanks("mc"), **kw).optimize(
-                200, obj, x0[0], generator=torch.Generator(), resume_state=state)
-        elif route == "multistart_faso":
+    if route == "FASO":
+        state = vt.FASO(vt.RMSProp(0.05), **kw).optimize(
+            100, obj, x0[0], generator=torch.Generator())["resume_state"]
+        D = x0.shape[1]
+        share = {**state, "ring": state["ring"][:, 2:], "ring_columns": np.asarray([2, D, D])}
+
+        def resume(rs, mesh=None, x=x0[0]):
+            vt.FASO(vt.RMSProp(0.05), mesh=mesh, **kw).optimize(
+                200, obj, x, generator=torch.Generator(), resume_state=rs)
+    else:
+        if route == "multistart_faso":
             state = multistart_faso(vt.RMSProp(0.05), 100, obj, x0, **kw)["resume_state"]
-            multistart_faso(vt.RMSProp(0.05), 200, obj, x0, resume_state=state,
-                            mesh=TwoRanks("restart"), **kw)
         else:
-            out = multistart_raabbvi(vt.RMSProp(0.05), 100, obj, x0, schedule="async",
-                                     verbose=False, **kw)
-            multistart_raabbvi(vt.RMSProp(0.05), 200, obj, x0, schedule="async",
-                               resume_state=out["resume_state"], verbose=False,
-                               mesh=TwoRanks("restart"), **kw)
+            state = multistart_raabbvi(vt.RMSProp(0.05), 100, obj, x0, schedule="async",
+                                       verbose=False, **kw)["resume_state"]
+        share = {**state, "rings": state["rings"][1:], "ring_restarts": np.asarray([1, 2, 2])}
+
+        def resume(rs, mesh=None, x=x0):
+            if route == "multistart_faso":
+                multistart_faso(vt.RMSProp(0.05), 200, obj, x, resume_state=rs, mesh=mesh,
+                                **kw)
+            else:
+                multistart_raabbvi(vt.RMSProp(0.05), 200, obj, x, schedule="async",
+                                   resume_state=rs, verbose=False, mesh=mesh, **kw)
+    with pytest.raises(ValueError, match="merge_resume_states"):
+        resume(share)
+    with pytest.raises(ValueError, match="merge_resume_states"):
+        resume(share, mesh=TwoRanks("mc" if route == "FASO" else "restart"))
+    with pytest.raises(ValueError, match="this run has"):
+        if route == "FASO":
+            resume(state, x=torch.zeros(2 * dim + 2, **F64))
+        else:
+            resume(state, x=torch.zeros((4, 2 * dim), **F64))

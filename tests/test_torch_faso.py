@@ -351,16 +351,6 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("route", ["FSDPFullRankELBO"])
-def test_deferred_routes_raise_with_a_roadmap_pointer(route):
-    """What is left of item 13b raises, pointing at ROADMAP.md:
-    FSDPFullRankELBO. The sharded engines and the Orbax pair run
-    (tests/test_torch_faso_sharded.py, tests/test_torch_multistart_sharded.py,
-    tests/test_torch_dcp.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 13b"):
-        getattr(vt.parallel, route)
-
-
 class XMesh:
     """A two-rank stand-in mesh whose only axis is ``x``."""
 
@@ -379,13 +369,13 @@ class XMesh:
 @pytest.mark.parametrize("route", [
     "bbvi_mesh", "multistart_optimize_mc_axis", "multistart_faso_mesh",
     "multistart_raabbvi_mesh", "FASO_mesh", "multipath_pathfinder_mesh",
-    "save_pytree_orbax"])
+    "save_pytree_orbax", "FSDPFullRankELBO_mesh"])
 def test_sharded_routes_reject_a_bad_mesh_as_jax_does(route, tmp_path):
-    """The routes item 13b deferred now run, and each rejects a mesh
+    """Each sharded route (FSDPFullRankELBO among them) rejects a mesh
     without the axis it shards over with the JAX package's exception (the
     JAX side on a jax.sharding.Mesh of two CPU devices with the one axis
-    ``x``); the Orbax pair rejects a template of another shape, as a load
-    onto another mesh shape meets it."""
+    ``x``); the Orbax pair rejects a template of another shape, as the
+    JAX package's Orbax restore does."""
     from viabel_tpu.checkpoint import load_pytree_orbax as j_load
     from viabel_tpu.checkpoint import save_pytree_orbax as j_save
     jmesh = jax.sharding.Mesh(np.asarray(jax.devices()[:2]), ("x",))
@@ -433,6 +423,9 @@ def test_sharded_routes_reject_a_bad_mesh_as_jax_does(route, tmp_path):
                                                      {"ring": torch.ones(3, 4)}),
                      vt.checkpoint.load_pytree_orbax(str(tmp_path / "t"),
                                                      like={"ring": torch.zeros(3, 2)}))),
+        "FSDPFullRankELBO_mesh": (
+            lambda: vj.parallel.fsdp.FSDPFullRankELBO(4, model_j, 4, jmesh),
+            lambda: vt.parallel.FSDPFullRankELBO(4, model, 4, XMesh())),
     }
     call_j, call_t = calls[route]
     with pytest.raises(Exception) as exc_j:
@@ -479,12 +472,10 @@ def test_ported_names_are_exported(name):
 
 def test_every_jax_export_is_ported_or_deferred():
     """Every name of viabel_tpu.__all__ is in viabel_torch.__all__, and
-    the parallel module's names are ported or raise a 13b pointer."""
+    every name of viabel_tpu.parallel.__all__ is ported: none is deferred
+    any more."""
     assert set(vj.__all__) <= set(vt.__all__)
     assert "parallel" in vt.__all__
+    assert set(vj.parallel.__all__) <= set(vt.parallel.__all__)
     for name in vj.parallel.__all__:
-        if name in vt.parallel.__all__:
-            assert getattr(vt.parallel, name).__module__.startswith("viabel_torch.")
-        else:
-            with pytest.raises(NotImplementedError, match="item 13b"):
-                getattr(vt.parallel, name)
+        assert getattr(vt.parallel, name).__module__.startswith("viabel_torch.")

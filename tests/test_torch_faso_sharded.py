@@ -145,9 +145,56 @@ def faso_case(case, table, rank, world, mesh, faso_mesh):
             "ring_columns": res["resume_state"].get("ring_columns")}
 
 
+class NoisyQuadratic:
+    """``0.5 |x - 1|^2`` with a standard normal gradient noise drawn from
+    the generator: an objective of any width ``D``."""
+
+    def value_and_grad(self, x, generator):
+        noise = torch.randn(x.shape, generator=generator, dtype=x.dtype)
+        return 0.5 * torch.sum((x - 1.0) ** 2), x - 1.0 + noise
+
+    def update(self, x, step):
+        return x - step
+
+
+def narrow_run(mesh):
+    """FASO on a 3- and a 1-column objective, max and quantile gate, with
+    the ring split over ``mesh`` (the even split; at D = 1 rank 0's shard
+    has no column) and without; kernel 1's wrapper counted."""
+    import viabel_torch as vt
+    import viabel_torch.mc_diagnostics as md
+    calls = []
+    plain = md.ring_group_stats
+
+    def counted(ring, center, group):
+        calls.append(ring.shape[1])
+        return plain(ring, center, group)
+
+    md.ring_group_stats = counted
+    out = {}
+    for D in (3, 1):
+        for quantile in (None, 0.9):
+            runs = {}
+            for name, faso_mesh in (("sharded", mesh), ("plain", None)):
+                FakeClock.t = 0.0
+                calls.clear()
+                res = vt.FASO(vt.RMSProp(0.05), mesh=faso_mesh, rhat_quantile=quantile,
+                              **FASO_KW).optimize(
+                    1500, NoisyQuadratic(), torch.zeros(D, dtype=torch.float64),
+                    generator=torch.Generator().manual_seed(2))
+                runs[name] = {"opt_param": res["opt_param"].numpy(),
+                              "k_conv": res["k_conv"], "k_stopped": res["k_stopped"],
+                              "rhat_verdicts": res["rhat_verdicts"],
+                              "ring_columns": res["resume_state"].get("ring_columns"),
+                              "kernel_widths": list(calls)}
+            out[(D, quantile)] = runs
+    md.ring_group_stats = plain
+    return out
+
+
 def child_main(spec):
     """One rank: the spec's FASO cases with and without the ring split,
-    or the checkpointed resume."""
+    the narrow objectives, or the checkpointed resume."""
     import torch.distributed as dist
     from viabel_torch.parallel import distributed_init, make_mesh
     rank, world = spec["rank"], spec["world"]
@@ -155,7 +202,9 @@ def child_main(spec):
                      backend="gloo", device_type="cpu")
     mesh = make_mesh(device_type="cpu")
     out = {}
-    if "case" in spec:
+    if spec.get("narrow"):
+        out = narrow_run(mesh)
+    elif "case" in spec:
         table = np.load(spec["table"])
         out["sharded"] = faso_case(spec["case"], table, rank, world, mesh, mesh)
         out["plain"] = faso_case(spec["case"], table, rank, world, mesh, None)
@@ -190,6 +239,13 @@ def resume_run(spec, mesh):
 
     full = run(spec["n_iters"])
     first = run(spec["k_stop"])
+    # the ring split alone (every rank steps the whole objective), for a
+    # load by one process
+    FakeClock.t = 0.0
+    split = vt.FASO(vt.RMSProp(0.05), **kw).optimize(
+        spec["k_stop"], vt.ExclusiveKL(family, model, S), x0,
+        generator=torch.Generator().manual_seed(4))
+    save_pytree_orbax(spec["tmp"] + "/ckpt_split", split["resume_state"])
     path = spec["tmp"] + "/ckpt"
     t0 = time.perf_counter()
     save_pytree_orbax(path, first["resume_state"])
@@ -204,7 +260,8 @@ def resume_run(spec, mesh):
             "files": sorted(os.listdir(path)), "saved_s": saved_s}
 
 
-CHILD_SOURCE = child_source(SliceNormal, faso_case, resume_run, child_main).replace(
+CHILD_SOURCE = child_source(SliceNormal, faso_case, NoisyQuadratic, narrow_run, resume_run,
+                            child_main).replace(
     "import viabel_torch as vt\n",
     "import os\nimport viabel_torch as vt\n"
     f"DIM, S, N_ITERS = {DIM}, {S}, {N_ITERS}\nCASES = {CASES!r}\nFASO_KW = {FASO_KW!r}\n", 1)
@@ -258,12 +315,15 @@ def test_sharded_faso_matches_unsharded_and_jax(tmp_path, fixed_clocks, case):  
         assert got["k_stopped"] > got["k_Rhat"]  # the MCSE check decided the stop
 
 
-def test_sharded_faso_checkpoint_resume(tmp_path):
+def test_sharded_faso_checkpoint_resume(tmp_path, fixed_clocks):  # noqa: F811
     """A sharded FASO run stopped at k = 400 (verdicts in flight), saved
     with save_pytree_orbax (each rank its own ring shard, one file a
     rank), loaded with its state as the template and resumed: equal to the
-    uninterrupted 1,200-step run to the bit, on both ranks. One process
-    cannot load what two ranks wrote."""
+    uninterrupted 1,200-step run to the bit, on both ranks. A FASO run
+    with only its ring split over the two ranks, saved there at k = 400,
+    is loaded by this one process (rank="all", no template), joined by
+    merge_resume_states and resumed without a mesh: equal to the
+    uninterrupted unsharded run to the bit."""
     ranks = run_ranks(tmp_path, CHILD_SOURCE, dict(n_iters=1200, k_stop=400))
     for r in ranks:
         full, resumed = r["full"], r["resumed"]
@@ -276,6 +336,45 @@ def test_sharded_faso_checkpoint_resume(tmp_path):
         assert r["files"] == [".metadata", "__0_0.distcp", "__1_0.distcp"]
     assert ranks[0]["ring_width"] + ranks[1]["ring_width"] == DIM + DIM * DIM
     assert ranks[0]["full"]["k_conv"] is not None
+    import viabel_torch as vt
     from viabel_torch.checkpoint import load_pytree_orbax
-    with pytest.raises(ValueError, match="written by 2 ranks"):
-        load_pytree_orbax(str(tmp_path / "ckpt"), device="cpu")  # one process
+    from viabel_torch.faso import merge_resume_states
+    shares = load_pytree_orbax(str(tmp_path / "ckpt_split"), device="cpu", rank="all")
+    assert [list(sh["ring_columns"]) for sh in shares] == [[0, 14, 30], [14, 30, 30]]
+    with pytest.raises(ValueError, match="merge_resume_states"):
+        vt.FASO(vt.RMSProp(0.05)).optimize(10, None, torch.zeros(30, dtype=torch.float64),
+                                           resume_state=shares[1])
+    f64 = dict(device="cpu", dtype=torch.float64)
+    objective = vt.ExclusiveKL(vt.FullRankGaussian(DIM, **f64),
+                               vt.zoo.logistic_regression(dim=DIM, n_data=40, **f64)[0], S)
+
+    def run(resume_state=None):
+        return vt.FASO(vt.RMSProp(0.05), max_history=600, **FASO_KW).optimize(
+            1200, objective, torch.zeros(DIM + DIM * DIM, **f64),
+            generator=torch.Generator().manual_seed(4), resume_state=resume_state)
+
+    full, resumed = run(), run(merge_resume_states(shares))
+    assert torch.equal(resumed["opt_param"], full["opt_param"])
+    assert resumed["k_stopped"] == full["k_stopped"] is not None
+    assert load_pytree_orbax(str(tmp_path / "ckpt"), device="cpu", rank=1)["t"] == 400
+
+
+def test_sharded_faso_on_fewer_columns_than_blocks(tmp_path):
+    """A ring too narrow for a 16-byte block a rank takes the even split:
+    at D = 3 columns [0, 1) | [1, 3), at D = 1 [0, 0) | [0, 1), where rank
+    0's shard has no column and runs no statistic (kernel 1's wrapper is
+    never called there). With the max and the quantile gate, FASO over two
+    ranks equals FASO without a mesh to the bit, on both ranks."""
+    ranks = run_ranks(tmp_path, CHILD_SOURCE, dict(narrow=True))
+    for rank, got in enumerate(ranks):
+        for (D, quantile), runs in got.items():
+            sharded, plain = runs["sharded"], runs["plain"]
+            np.testing.assert_array_equal(sharded["opt_param"], plain["opt_param"])
+            for name in ("k_conv", "k_stopped", "rhat_verdicts"):
+                assert sharded[name] == plain[name], (D, quantile, name)
+            assert plain["k_stopped"] is not None
+            bounds = [0, 1, 3] if D == 3 else [0, 0, 1]
+            assert list(sharded["ring_columns"]) == [bounds[rank], bounds[rank + 1], D]
+            width = bounds[rank + 1] - bounds[rank]
+            assert set(sharded["kernel_widths"]) == ({width} if width else set())
+            assert plain["kernel_widths"] and set(plain["kernel_widths"]) == {D}

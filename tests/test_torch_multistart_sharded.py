@@ -24,6 +24,7 @@ from test_torch_faso_sharded import (FakeClock, FixedTimer, child_source,  # noq
 
 F64 = dict(device="cpu", dtype=torch.float64)
 MS_KW = dict(W_min=100, k_check=50, mcse_threshold=0.1, ESS_min=10, max_history=600)
+MS_KW_FASO = dict(W_min=100, k_check=50, mcse_threshold=0.05)
 RB_KW = dict(W_min=50, k_check=50, iters0=10, max_history=600, verbose=False,
              learning_rate=np.array([0.1, 0.05, 0.1, 0.05]))
 
@@ -82,6 +83,81 @@ def multistart_case(case, mesh=None):
     return out
 
 
+def reshard_case(mc_mesh, restart_mesh):
+    """Each engine resumed across mesh shapes, beside its uninterrupted
+    unsharded run: FASO with its ring's columns split over ``mc_mesh``,
+    multistart_faso and the async multistart_raabbvi with their restarts
+    split over ``restart_mesh``. Whole to split: the unsharded run's state
+    at the stop, resumed split. Split to whole: every rank's state of the
+    split run at the stop, joined by merge_resume_states and resumed
+    unsharded. (The async run stops at a round boundary through its
+    round_callback snapshots.)"""
+    import torch.distributed as dist
+    import viabel_torch as vt
+    from viabel_torch.faso import merge_resume_states
+    from viabel_torch.parallel import multistart_faso, multistart_raabbvi
+    f64 = dict(device="cpu", dtype=torch.float64)
+    model = vt.zoo.logistic_regression(dim=3, n_data=40, **f64)[0]
+
+    def every_rank(state):
+        states = [None] * dist.get_world_size()
+        dist.all_gather_object(states, state)
+        return states
+
+    def faso(n, mesh=None, rs=None):
+        FakeClock.t = 0.0
+        objective = vt.ExclusiveKL(vt.FullRankGaussian(3, **f64), model, 10)
+        return vt.FASO(vt.RMSProp(0.05), mesh=mesh, max_history=600, **MS_KW_FASO).optimize(
+            n, objective, torch.zeros(12, **f64), generator=torch.Generator().manual_seed(5),
+            resume_state=rs)
+
+    def ms_faso(n, mesh=None, rs=None):
+        FakeClock.t = 0.0
+        objective = vt.ExclusiveKL(vt.MFGaussian(3, **f64), model, 10)
+        x0 = torch.as_tensor(0.1 * np.random.RandomState(1).randn(4, 6))
+        return multistart_faso(vt.RMSProp(0.05), n, objective, x0,
+                               torch.Generator().manual_seed(3), mesh=mesh, resume_state=rs,
+                               **MS_KW)
+
+    def ms_async(n, mesh=None, rs=None, snaps=None):
+        FakeClock.t = 0.0
+        objective = vt.ExclusiveKL(vt.FullRankGaussian(3, **f64), model, 4,
+                                   use_path_deriv=True)
+        x0 = torch.as_tensor(0.1 * np.random.RandomState(1).randn(4, 12))
+        return multistart_raabbvi(
+            vt.RMSProp(0.1), n, objective, x0, torch.Generator().manual_seed(3), mesh=mesh,
+            schedule="async", resume_state=rs, round_callback=(
+                None if snaps is None else lambda k, snap: snaps.append(snap)), **RB_KW)
+
+    out = {}
+    for name, run, mesh, n, stop in (("faso", faso, mc_mesh, 1200, 400),
+                                     ("multistart_faso", ms_faso, restart_mesh, 1500, 400)):
+        whole_state = run(stop)["resume_state"]
+        shares = every_rank(run(stop, mesh)["resume_state"])
+        out[name] = {"full": run(n), "split_from_whole": run(n, mesh, whole_state),
+                     "whole_from_split": run(n, None, merge_resume_states(shares)),
+                     "spans": [list(np.asarray(sh.get("ring_columns", sh.get("ring_restarts"))))
+                               for sh in shares]}
+    snaps_whole, snaps_split = [], []
+    full = ms_async(3000, snaps=snaps_whole)
+    ms_async(3000, restart_mesh, snaps=snaps_split)
+    i = len(snaps_whole) // 2
+    out["multistart_raabbvi"] = {
+        "full": full, "split_from_whole": ms_async(3000, restart_mesh, snaps_whole[i]),
+        "whole_from_split": ms_async(3000, None,
+                                     merge_resume_states(every_rank(snaps_split[i]))),
+        "spans": [list(np.asarray(sh["ring_restarts"])) for sh in every_rank(snaps_split[i])]}
+    for runs in out.values():
+        for key in ("full", "split_from_whole", "whole_from_split"):
+            res = runs[key]
+            runs[key] = {name: (res[name].numpy() if isinstance(res[name], torch.Tensor)
+                                else res[name])
+                         for name in ("opt_param", "k_conv", "k_stopped", "k_stopped_final",
+                                      "k_total", "k_global_steps", "kappa_hist")
+                         if name in res}
+    return out
+
+
 def optimize_rows(mesh):
     """``multistart_optimize`` on the restart x mc mesh, and each of this
     rank's restarts run alone (B = 1) under ``shard_mc_objective`` on the
@@ -122,7 +198,10 @@ def child_main(spec):
     distributed_init("file://" + spec["store"], world_size=world, rank=rank,
                      backend="gloo", device_type="cpu")
     stub_regression()
-    if spec["case"] == "optimize":
+    if spec["case"] == "reshard":
+        out = reshard_case(make_mesh((2,), ("mc",), device_type="cpu"),
+                           make_mesh((2,), ("restart",), device_type="cpu"))
+    elif spec["case"] == "optimize":
         out = optimize_rows(make_mesh((2, 2), ("restart", "mc"), device_type="cpu"))
     elif spec["case"] == "pathfinder":
         out = pathfinder_run(make_mesh((2,), ("paths",), device_type="cpu"))
@@ -132,10 +211,10 @@ def child_main(spec):
     dist.destroy_process_group()
 
 
-CHILD_SOURCE = child_source(stub_regression, multistart_case, optimize_rows,
+CHILD_SOURCE = child_source(stub_regression, multistart_case, reshard_case, optimize_rows,
                             pathfinder_run, child_main).replace(
     "import viabel_torch as vt\n",
-    f"import viabel_torch as vt\nMS_KW = {MS_KW!r}\n"
+    f"import viabel_torch as vt\nMS_KW = {MS_KW!r}\nMS_KW_FASO = {MS_KW_FASO!r}\n"
     f"RB_KW = dict({', '.join(f'{k}={v!r}' for k, v in RB_KW.items() if k != 'learning_rate')},"
     " learning_rate=np.array([0.1, 0.05, 0.1, 0.05]))\n", 1)
 
@@ -190,6 +269,35 @@ def test_restart_sharded_engines_match_unsharded(tmp_path, parent_stubs, case):
     else:
         assert all(k is not None for k in want["k_stopped_final"])
         assert len({tuple(h) for h in want["kappa_hist"]}) > 1
+
+
+def test_resume_across_mesh_shapes(tmp_path, parent_stubs):
+    """Over two ranks, FASO (ring columns split) and multistart_faso and
+    the async multistart_raabbvi (restarts split) resume across mesh
+    shapes: the unsharded run's state resumed split, and the split run's
+    two states joined by merge_resume_states and resumed unsharded, each
+    equal to the uninterrupted unsharded run to the bit, on both ranks."""
+    ranks = run_ranks(tmp_path, CHILD_SOURCE, dict(case="reshard"))
+    for got in ranks:
+        for engine, runs in got.items():
+            want = runs["full"]
+            for key in ("split_from_whole", "whole_from_split"):
+                assert set(runs[key]) == set(want), (engine, key)
+                for name, value in want.items():
+                    if isinstance(value, np.ndarray):
+                        np.testing.assert_array_equal(runs[key][name], value,
+                                                      err_msg=f"{engine} {key} {name}")
+                    else:
+                        assert runs[key][name] == value, (engine, key, name)
+            np.testing.assert_array_equal(want["opt_param"],
+                                          ranks[0][engine]["full"]["opt_param"])
+    spans = {engine: runs["spans"] for engine, runs in ranks[0].items()}
+    assert spans["faso"][0][0] == 0 and spans["faso"][0][1] == spans["faso"][1][0]
+    assert spans["faso"][1][1:] == [12, 12]
+    for engine in ("multistart_faso", "multistart_raabbvi"):
+        assert spans[engine] == [[0, 2, 4], [2, 4, 4]]
+    assert ranks[0]["faso"]["full"]["k_stopped"] is not None
+    assert all(k is not None for k in ranks[0]["multistart_faso"]["full"]["k_stopped"])
 
 
 def test_multistart_optimize_on_a_restart_by_mc_mesh(tmp_path):

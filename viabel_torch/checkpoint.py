@@ -18,12 +18,15 @@ convergence statistics (the history ring is the detection state).
 
 ``save_pytree_orbax`` / ``load_pytree_orbax`` keep the JAX package's names
 for its Orbax directory backend and write a ``torch.distributed.checkpoint``
-directory instead. Every rank of the process group calls them with its
-own tree: a sharded run's state holds this rank's ring shard (or rings)
-and its copy of the replicated leaves, and each rank writes its tree to
-its own file, with no gather. A load therefore needs the world size of
-the save and returns each rank its own tree. In one process with no
-process group they work alike.
+directory instead. Every rank of the process group calls the save with
+its own tree: a sharded run's state holds this rank's ring shard (or
+rings) and its copy of the replicated leaves, and each rank writes its
+tree to its own file, with no gather. A load reads one saved rank's tree
+(by default its own rank's) or every saved rank's, in a process group of
+any size or in one process, so a state saved on P ranks resumes on Q:
+load every tree, join them with
+:func:`viabel_torch.faso.merge_resume_states` and pass the whole state to
+the run (the JAX package's Orbax restore re-shards its global arrays).
 """
 
 import json
@@ -137,13 +140,22 @@ def _group():
     return 0, 1
 
 
-def _dcp(fn, state, path, world):
-    """``dcp.save`` or ``dcp.load`` of ``state``; in one process without
-    the notice that DCP gives there."""
+def _dcp(fn, state, path, no_dist):
+    """``dcp.save`` or ``dcp.load`` of ``state`` (with no collective when
+    ``no_dist``), without the notice that DCP gives in one process."""
     import warnings
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="torch.distributed is disabled")
-        fn(state, checkpoint_id=path, no_dist=world == 1)
+        fn(state, checkpoint_id=path, no_dist=no_dist)
+
+
+def _kind(leaf):
+    """How a leaf comes back from a load without a template."""
+    if isinstance(leaf, torch.Tensor):
+        return "tensor"
+    if isinstance(leaf, (np.ndarray, np.generic)):
+        return "numpy"
+    return "object"
 
 
 def _dcp_value(leaf):
@@ -166,11 +178,13 @@ def save_pytree_orbax(path, tree):
     :func:`save_pytree`."""
     import torch.distributed.checkpoint as dcp
     rank, world = _group()
-    state, paths = {}, []
+    state, paths, kinds = {}, [], []
     for i, (leaf_path, leaf) in enumerate(_flatten(tree)):
         state[f"rank{rank}/leaf_{i:05d}"] = _dcp_value(leaf)
         paths.append("/".join(leaf_path) or "__root__")
-    state[f"rank{rank}/{_META_KEY}"] = json.dumps({"paths": paths, "world": world})
+        kinds.append(_kind(leaf))
+    state[f"rank{rank}/{_META_KEY}"] = json.dumps({"paths": paths, "kinds": kinds,
+                                                  "world": world})
     path = os.path.abspath(path)
     if rank == 0 and os.path.lexists(path):
         if os.path.isdir(path) and not os.path.islink(path):
@@ -179,7 +193,7 @@ def save_pytree_orbax(path, tree):
             os.remove(path)
     if world > 1:
         dist.barrier()
-    _dcp(dcp.save, state, path, world)
+    _dcp(dcp.save, state, path, world == 1)
 
 
 def _nest(paths, leaves):
@@ -204,62 +218,81 @@ def _nest(paths, leaves):
     return out.get("__root__", out) if isinstance(out, dict) else out
 
 
-def load_pytree_orbax(path, like=None, device="cuda"):
-    """Read a directory written by :func:`save_pytree_orbax`; every rank
-    reads its own tree, so the process group needs the world size of the
-    save (``ValueError`` otherwise).
+def load_pytree_orbax(path, like=None, device="cuda", rank=None):
+    """Read a directory written by :func:`save_pytree_orbax`: the tree
+    that saved rank ``rank`` wrote (by default this process's rank in its
+    process group, 0 without one), or with ``rank="all"`` the list of
+    every saved rank's tree in rank order. The saved world size need not
+    be this one's; no collective runs, so any rank may load alone.
 
-    With ``like`` (a tree of the same structure, such as this rank's
-    state that was saved), each leaf comes back as the template's leaf:
-    a tensor on its device and in its dtype (read there directly), a numpy
-    array, or a Python scalar; a template leaf of another shape raises
-    ``ValueError``, as the JAX package's Orbax restore does. Without it,
-    the saved structure, with tensors on ``device``.
+    With ``like`` (a tree of the same structure, such as the state that
+    was saved; with ``rank="all"`` a list of one a saved rank), each leaf
+    comes back as the template's leaf: a tensor on its device and in its
+    dtype (read there directly), a numpy array, or a Python scalar; a
+    template leaf of another shape raises ``ValueError``, as the JAX
+    package's Orbax restore does. Without it, the saved structure: tensors
+    on ``device``, numpy arrays and Python scalars as they were saved.
     """
     import torch.distributed.checkpoint as dcp
     from torch.distributed.checkpoint.metadata import TensorStorageMetadata
-    rank, world = _group()
     path = os.path.abspath(path)
     stored = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
-    prefix = f"rank{rank}/"
-    meta_key = prefix + _META_KEY
-    saved_world = len({key.split("/", 1)[0] for key in stored})
-    if meta_key not in stored or saved_world != world:
-        raise ValueError(f"{path} was written by {saved_world} ranks; this process "
-                         f"group has {world}: a load needs the mesh shape of the save")
-    meta = {meta_key: None}
-    _dcp(dcp.load, meta, path, world)
-    paths = json.loads(meta[meta_key])["paths"]
-    templates = ([None] * len(paths) if like is None
-                 else [leaf for _, leaf in _flatten(like)])
-    if len(templates) != len(paths):
-        raise ValueError(f"checkpoint has {len(paths)} leaves; template has "
-                         f"{len(templates)}")
-    if like is None:
+    saved = sorted(int(key.split("/", 1)[0][len("rank"):]) for key in stored
+                   if key.endswith("/" + _META_KEY))
+    if rank == "all":
+        ranks = saved
+        templates = [None] * len(saved) if like is None else list(like)
+        if len(templates) != len(saved):
+            raise ValueError(f"{path} holds {len(saved)} ranks' trees; "
+                             f"{len(templates)} templates were given")
+    else:
+        ranks, templates = [_group()[0] if rank is None else int(rank)], [like]
+        if ranks[0] not in saved:
+            raise ValueError(f"{path} holds the trees of ranks {saved}, not of rank "
+                             f"{ranks[0]}: pass rank= one of them, or rank='all'")
+    if any(t is None for t in templates):
         device = check_device(device)
-    state = {}
-    for i, tmpl in enumerate(templates):
-        key = f"{prefix}leaf_{i:05d}"
-        md = stored[key]
-        if not isinstance(md, TensorStorageMetadata):
-            state[key] = None
+    metas = {f"rank{r}/{_META_KEY}": None for r in ranks}
+    _dcp(dcp.load, metas, path, True)
+    metas = [json.loads(metas[f"rank{r}/{_META_KEY}"]) for r in ranks]
+    state, plans = {}, []
+    for r, meta, tmpl_tree in zip(ranks, metas, templates):
+        paths = meta["paths"]
+        tmpls = ([None] * len(paths) if tmpl_tree is None
+                 else [leaf for _, leaf in _flatten(tmpl_tree)])
+        if len(tmpls) != len(paths):
+            raise ValueError(f"checkpoint has {len(paths)} leaves; template has "
+                             f"{len(tmpls)}")
+        keys = [f"rank{r}/leaf_{i:05d}" for i in range(len(paths))]
+        for key, tmpl, leaf_path in zip(keys, tmpls, paths):
+            md = stored[key]
+            if not isinstance(md, TensorStorageMetadata):
+                state[key] = None
+                continue
+            shape = tuple(md.size)
+            if tmpl is not None and hasattr(tmpl, "shape") and tuple(tmpl.shape) != shape:
+                raise ValueError(f"leaf {leaf_path!r}: requested shape {tuple(tmpl.shape)} "
+                                 f"is not compatible with the stored shape {shape}")
+            where = (tmpl.device if isinstance(tmpl, torch.Tensor)
+                     else device if tmpl is None else "cpu")
+            state[key] = torch.empty(shape, dtype=md.properties.dtype, device=where)
+        plans.append((keys, tmpls, meta, tmpl_tree))
+    _dcp(dcp.load, state, path, True)
+    trees = []
+    for keys, tmpls, meta, tmpl_tree in plans:
+        leaves = [state[key] for key in keys]
+        if tmpl_tree is None:
+            kinds = meta.get("kinds", ["tensor"] * len(keys))
+            leaves = [v.cpu().numpy() if kind == "numpy" else v
+                      for v, kind in zip(leaves, kinds)]
+            trees.append(_nest(meta["paths"], leaves))
             continue
-        shape = tuple(md.size)
-        if tmpl is not None and hasattr(tmpl, "shape") and tuple(tmpl.shape) != shape:
-            raise ValueError(f"leaf {paths[i]!r}: requested shape {tuple(tmpl.shape)} "
-                             f"is not compatible with the stored shape {shape}")
-        where = (tmpl.device if isinstance(tmpl, torch.Tensor)
-                 else device if tmpl is None else "cpu")
-        state[key] = torch.empty(shape, dtype=md.properties.dtype, device=where)
-    _dcp(dcp.load, state, path, world)
-    leaves = [state[f"{prefix}leaf_{i:05d}"] for i in range(len(paths))]
-    if like is None:
-        return _nest(paths, leaves)
-    restored = []
-    for value, tmpl in zip(leaves, templates):
-        if isinstance(tmpl, torch.Tensor):
-            restored.append(value.to(tmpl.dtype))
-        else:
-            array = value.cpu().numpy() if isinstance(value, torch.Tensor) else value
-            restored.append(_restore(np.asarray(array), tmpl))
-    return _unflatten(like, iter(restored))
+        restored = []
+        for value, tmpl in zip(leaves, tmpls):
+            if isinstance(tmpl, torch.Tensor):
+                restored.append(value.to(tmpl.dtype))
+            else:
+                array = value.cpu().numpy() if isinstance(value, torch.Tensor) else value
+                restored.append(_restore(np.asarray(array), tmpl))
+        trees.append(_unflatten(tmpl_tree, iter(restored)))
+    return trees if rank == "all" else trees[0]

@@ -16,7 +16,8 @@ from .families import (LRGaussian, NeuralNet, NVPFlow, _CholeskyFamily,
 from .utils import check_device
 
 __all__ = ["params_from_jax", "rmsprop_state_from_jax", "opt_state_from_jax",
-           "ring_from_jax", "obj_state_from_jax", "resume_state_from_jax"]
+           "ring_from_jax", "obj_state_from_jax", "resume_state_from_jax",
+           "fsdp_params_from_jax", "fsdp_opt_state_from_jax"]
 
 _KNOWN_LAYOUTS = (_CholeskyFamily, _MeanFieldLocScale, LRGaussian, NeuralNet, NVPFlow)
 
@@ -153,3 +154,23 @@ def resume_state_from_jax(rs, approx, sgo, device=None, dtype=None):
         if name in rs:
             out[name] = np.asarray(rs[name])
     return out
+
+
+def fsdp_params_from_jax(mu, theta, trainer):
+    """The global ``(mu, theta)`` arrays of a JAX ``FSDPFullRankELBO`` as
+    this rank's shard of ``trainer`` (a
+    :class:`viabel_torch.parallel.FSDPFullRankELBO`), in their dtype."""
+    return trainer.shard_params(np.asarray(mu), np.asarray(theta))
+
+
+def fsdp_opt_state_from_jax(state, trainer, jax_fsdp_size):
+    """A JAX ``FSDPFullRankELBO`` opt state ``(nu_mu, nu_theta, t)`` (global
+    arrays) as this rank's shard of ``trainer``'s. The JAX step's gradient
+    is ``jax_fsdp_size`` times the true one (its ``fsdp`` axis size; a
+    known defect of the reference, ROADMAP.md Queue 3), so its ``nu`` is
+    divided by ``jax_fsdp_size**2``."""
+    nu_mu, nu_theta, t = state
+    scale = float(jax_fsdp_size) ** 2
+    nu_mu, nu_theta = trainer.shard_params(np.asarray(nu_mu) / scale,
+                                           np.asarray(nu_theta) / scale)
+    return nu_mu, nu_theta, int(np.asarray(t))

@@ -31,7 +31,15 @@ replicated iterate, and runs the statistics (kernel 1 included) on its
 shard. Only the reductions cross ranks: a MAX of the windows' R-hat (a
 SUM of the quantile gate's counts), a MAX of MCSE and a MIN of ESS, and
 an all-gather of the window means, so every rank returns the whole
-vector. The clock readings are rank 0's over the axis.
+vector. The clock readings are rank 0's over the axis. A rank whose shard
+has no column (fewer columns than ranks) launches nothing: its R-hat and
+MCSE enter the reductions as their identities.
+
+A resume state resumes on any mesh shape: a whole ring (``ring_columns``
+``[0, D, D]``, or none) is cut to this rank's columns, and the per-rank
+states of a sharded run are joined into the whole one first by
+:func:`merge_resume_states` (the JAX package re-shards its global ring
+with ``device_put``).
 """
 
 import math
@@ -51,7 +59,7 @@ from .optimizers import (AveragedAdam, AveragedRMSProp, Optimizer, RMSProp,
                          default_generator)
 from .utils import Timer
 
-__all__ = ["FASO", "RAABBVI"]
+__all__ = ["FASO", "RAABBVI", "merge_resume_states"]
 
 # indirection so tests can stub the recheck-schedule clock deterministically
 _now = time.perf_counter
@@ -110,6 +118,82 @@ def _set_generator_state(generator, state):
             f"another device type than this {generator.device.type!r} one; pass "
             "a generator on the device type of the run that saved it")
     generator.set_state(state)
+
+
+def _int_list(x):
+    """A short integer vector of a resume state (a list, a numpy array or
+    a tensor on any device) as a list of ints."""
+    return [int(v) for v in torch.as_tensor(x).tolist()]
+
+
+def _resume_ring(rs, c0, c1, D, like):
+    """Columns ``[c0, c1)`` of a FASO resume state's ``(R, D)`` ring, as a
+    contiguous copy on ``like``'s device and dtype (segments write the
+    ring in place, and the caller's snapshot must stay valid). The state's
+    ring is whole or exactly this shard; a state that holds another
+    rank's shard, or belongs to another ``D``, raises ``ValueError``."""
+    ring = torch.as_tensor(rs["ring"])
+    width = ring.shape[1]
+    a, b, D_saved = _int_list(rs.get("ring_columns", (0, width, width)))
+    if D_saved != D or b - a != width:
+        raise ValueError(f"resume_state's ring holds columns [{a}, {b}) of {D_saved}; "
+                         f"this run has {D} coordinates")
+    if (a, b) == (0, D):
+        ring = ring[:, c0:c1]
+    elif (a, b) != (c0, c1):
+        raise ValueError(
+            f"resume_state's ring holds columns [{a}, {b}) of {D}, one rank's shard, and "
+            f"this rank's are [{c0}, {c1}): join every rank's state with "
+            "merge_resume_states first")
+    return ring.to(device=like.device, dtype=like.dtype, copy=True,
+                   memory_format=torch.contiguous_format)
+
+
+def merge_resume_states(states):
+    """The whole resume state of a run sharded over ranks, from every
+    rank's ``results["resume_state"]`` (in any order).
+
+    FASO's ring shards (``ring_columns``) are joined along their columns
+    and the multistart engines' rings (``ring_restarts``) in restart
+    order; a shard that two ranks hold alike (a replica over another mesh
+    axis) enters once. Every other leaf is the same on every rank and is
+    taken from the first state; nested states (RAABBVI's ``flight``, the
+    async prelude's ``prelude_flight``) are joined alike. The result
+    resumes the run on any mesh shape, or without a mesh. States that do
+    not cover the whole ring, or belong to different runs, raise
+    ``ValueError``.
+    """
+    states = list(states)
+    first = states[0]
+    if not isinstance(first, dict):
+        return first
+    for span_key, ring_key in (("ring_columns", "ring"), ("ring_restarts", "rings")):
+        if span_key not in first:
+            continue
+        spans = [tuple(_int_list(st[span_key])) for st in states]
+        total = spans[0][2]
+        parts, pos, last = [], 0, None
+        for (a, b, n), st in sorted(zip(spans, states), key=lambda p: p[0]):
+            if n != total:
+                raise ValueError(f"states of {total} and {n} {ring_key} columns or rows "
+                                 "belong to different runs")
+            if a == pos:
+                parts.append(st[ring_key])
+                pos = b
+            elif (a, b) != last:
+                raise ValueError(f"the states' {span_key} {sorted(spans)} do not tile "
+                                 f"[0, {total})")
+            last = (a, b)
+        if pos != total:
+            raise ValueError(f"the states cover [0, {pos}) of {total}: every rank's "
+                             "state is needed")
+        whole = dict(first)
+        whole[ring_key] = (torch.cat([torch.as_tensor(p) for p in parts], dim=1)
+                           if ring_key == "ring" else [r for p in parts for r in p])
+        whole[span_key] = np.asarray([0, total, total])
+        return whole
+    return {k: merge_resume_states([st[k] for st in states]) if isinstance(v, dict) else v
+            for k, v in first.items()}
 
 
 def _agreed(objective, x):
@@ -201,7 +285,8 @@ def _mcse_check(ring, t, w, mf_dim, chunk=8192, c0=0, gather=None):
     t, w = int(t), int(w)
     idx = torch.as_tensor([(t - w + j) % R for j in range(w)],
                           device=ring.device)
-    effs, mcses, means, diffs = [], [], [], []
+    # a shard with no column (D == 0) has empty statistics
+    effs, mcses, means, diffs = ([ring.new_zeros(0)] for _ in range(4))
     for j in range(0, D, chunk):
         ordered = ring[idx, j:j + chunk]
         eff_c, mcse_c = ess_and_mcse_windowed(ordered, w, chunk_size=chunk)
@@ -266,7 +351,10 @@ class FASO(Optimizer):
     a ``DeviceMesh`` (see the module docstring). Every rank of the mesh
     runs ``optimize`` with the same arguments and generator seed; the
     results are the same on every rank and equal the unsharded run's.
-    A resume needs the mesh shape of the run that saved the state.
+    A ``resume_state`` resumes on any mesh shape: pass the whole state
+    (an unsharded run's, or the ranks' states joined by
+    :func:`merge_resume_states`), or this rank's own state of a run on
+    the same mesh.
 
     Beside the JAX package's results, ``results["rhat_verdicts"]`` lists
     each R-hat verdict read as ``(k, best_window, statistic, passed)``.
@@ -395,11 +483,23 @@ class FASO(Optimizer):
                 return shard.gather(x, widths)
 
         cols = slice(c0, c1)
+        # a shard with no column (D below the rank count) reads no ring
+        empty = c1 == c0
 
         def window_mean(w):
             """The whole ``(D,)`` mean of the ring's last ``w`` iterates."""
-            mean = ring_window_mean(ring, t, w, G)
+            mean = ring.new_zeros(0) if empty else ring_window_mean(ring, t, w, G)
             return mean if gather is None else gather(mean)
+
+        def ring_rhats(windows):
+            """The ``(K,)`` R-hat statistics of this rank's columns; the
+            identity of their reduction over ranks on an empty shard."""
+            if empty:
+                return torch.full((len(windows),), -torch.inf if rhat_allowed is None
+                                  else 0.0, dtype=ring.dtype, device=ring.device)
+            return split_rhat_ring_windows(
+                ring, t, windows, G, exceed_threshold=(None if rhat_allowed is None
+                                                       else self._rhat_threshold))
 
         def agreed(x):
             x = _agreed(objective, x)
@@ -466,15 +566,7 @@ class FASO(Optimizer):
             var_param = torch.as_tensor(rs["var_param"]).to(var_param).clone()
             opt_state = _clone_state(rs["opt_state"])
             obj_state = _clone_state(rs.get("obj_state", obj_state))
-            # a copy: segments write the ring in place, and the caller's
-            # snapshot must stay valid
-            ring = torch.as_tensor(rs["ring"]).to(var_param).clone()
-            saved_cols = np.asarray(rs.get("ring_columns", (0, D, D))).tolist()
-            if ring.shape[1] != c1 - c0 or saved_cols != [c0, c1, D]:
-                raise ValueError(
-                    f"resume_state's ring holds columns {saved_cols[:2]} of "
-                    f"{saved_cols[2]}; this rank's shard is [{c0}, {c1}) of {D}: a "
-                    "resume needs the mesh shape of the run that saved it")
+            ring = _resume_ring(rs, c0, c1, D, var_param)
             R = ring.shape[0]  # the checkpointed ring wins over local sizing
             t = int(rs["t"])
             k = int(rs["k"])
@@ -630,10 +722,7 @@ class FASO(Optimizer):
                 if W_upper > self._W_min and W_upper >= 2 * G:
                     next_check_at = k + self._k_check * check_interval
                     windows = _candidate_windows(self._W_min, W_upper, G)
-                    r_hats = split_rhat_ring_windows(
-                        ring, t, windows, G,
-                        exceed_threshold=(None if rhat_allowed is None
-                                          else self._rhat_threshold))
+                    r_hats = ring_rhats(windows)
                     if shard is not None:
                         # on the device, before the pipelined read-back
                         r_hats = (shard.max(r_hats) if rhat_allowed is None
@@ -666,7 +755,10 @@ class FASO(Optimizer):
                     else:
                         # one MAX over the shards: the max MCSE and the min
                         # ESS, standing in for the whole vectors below
-                        worst = shard.max(torch.stack([mcse.max(), -eff.min()]))
+                        worst = (shard.max(torch.stack([mcse.max(), -eff.min()]))
+                                 if not empty else shard.max(torch.full(
+                                     (2,), -torch.inf, dtype=ring.dtype,
+                                     device=ring.device)))
                         worst = worst.cpu().numpy()
                         mcse, eff = worst[:1], -worst[1:]
                 mcse_time_total += mcse_timer.interval

@@ -121,14 +121,16 @@ def column_split(D, n, dtype):
     float32, 2 in float64) and the last shard takes the remainder, so
     each shard of a contiguous ``(R, D)`` ring starts on a 16-byte
     boundary with a column count that kernel 1's vector path takes
-    (``csrc/ringstats.cu``). Raises ``ValueError`` when a shard would
-    be empty."""
+    (``csrc/ringstats.cu``). Where that would leave a shard empty (fewer
+    than 16 bytes of columns a rank), the split is the even one,
+    ``[i * D // n]``, which kernel 1's scalar path runs; with ``D < n``
+    some of its shards have no column."""
+    D = int(D)
     align = max(1, 16 // torch.empty((), dtype=dtype).element_size())
-    base = (int(D) // n) // align * align
+    base = (D // n) // align * align
     if n > 1 and base == 0:
-        raise ValueError(f"{D} columns cannot be split over {n} ranks in blocks of "
-                         f"{align} columns")
-    return [i * base for i in range(n)] + [int(D)]
+        return [i * D // n for i in range(n)] + [D]
+    return [i * base for i in range(n)] + [D]
 
 
 class MeshAxis:

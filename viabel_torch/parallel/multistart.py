@@ -30,7 +30,11 @@ statistics (R-hat rows, ESS/MCSE rows, window means) are all-gathered in
 restart order, so every rank runs the same host bookkeeping on all B
 restarts and takes every decision alike; clock readings are rank 0's.
 The results are the unsharded run's on every rank; ``resume_state``
-carries this rank's rings and everything else whole.
+carries this rank's rings (their restarts in ``ring_restarts``) and
+everything else whole. A resume state resumes on any mesh shape: the
+whole state (an unsharded run's, or the ranks' states joined by
+:func:`viabel_torch.faso.merge_resume_states`) gives each rank its
+restarts' rings.
 """
 
 from collections import deque
@@ -39,9 +43,9 @@ import numpy as np
 import torch
 
 from ..faso import (_backoff_adjust, _candidate_windows, _clamp_stat, _clone_state,
-                    _detection_geometry, _host_handle, _mcse_check, _now, _pad_events,
-                    _pad_tail, _read_host, _recheck_scale, _set_generator_state,
-                    _to_host_async)
+                    _detection_geometry, _host_handle, _int_list, _mcse_check, _now,
+                    _pad_events, _pad_tail, _read_host, _recheck_scale,
+                    _set_generator_state, _to_host_async)
 from ..families import MFGaussian
 from ..mc_diagnostics import ring_window_mean, split_rhat_ring_windows
 from ..optimizers import (StochasticGradientOptimizer, _obj_check_state, _obj_init_state,
@@ -90,6 +94,35 @@ def _gather_owned(restarts, items, device=None):
     parts = restarts.gather_objects([items[b] for b in restarts.rows(len(items))])
     out = [item for part in parts for item in part]
     return out if device is None else _to_device(out, device)
+
+
+def _resume_rings(rs, local, B, like):
+    """A B-long list holding copies of the resume state's rings of the
+    restarts in ``local`` (on ``like``'s device and dtype), ``None``
+    elsewhere. The state's rings are all B (``ring_restarts`` ``[0, B,
+    B]``, or none) or exactly ``local``'s; a state that holds another
+    rank's restarts, or belongs to another B, raises ``ValueError``."""
+    saved = list(rs["rings"])
+    a, b, B_saved = _int_list(rs.get("ring_restarts", (0, len(saved), len(saved))))
+    if B_saved != B or b - a != len(saved):
+        raise ValueError(f"resume_state holds the rings of restarts [{a}, {b}) of "
+                         f"{B_saved}; this run has {B} restarts")
+    if (a, b) != (0, B) and (a, b) != (local.start, local.stop):
+        raise ValueError(
+            f"resume_state holds the rings of restarts [{a}, {b}) of {B}, one rank's "
+            f"share, and this rank runs [{local.start}, {local.stop}): join every rank's "
+            "state with merge_resume_states first")
+    rings = [None] * B
+    for r in local:
+        rings[r] = torch.as_tensor(saved[r - a]).to(like, copy=True)
+    return rings
+
+
+def _ring_span(restarts, local, B):
+    """A sharded run's ``ring_restarts`` entry: which restarts' rings this
+    rank's resume state holds."""
+    return {} if restarts is None else {
+        "ring_restarts": np.asarray([local.start, local.stop, B])}
 
 
 class _BatchedEngine:
@@ -343,9 +376,9 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
     ``mesh`` / ``restart_axis``: the restarts split over that axis of a
     ``DeviceMesh`` (``B`` divisible by its size); every rank calls with the
     same arguments and gets the same results (see the module docstring).
-    ``generators`` and ``init_opt_states`` stay B long. A resume needs the
-    mesh shape of the run that saved the state, whose ``rings`` are this
-    rank's.
+    ``generators`` and ``init_opt_states`` stay B long. A resume runs on
+    any mesh shape from the whole state (see the module docstring), or on
+    the same mesh from this rank's own.
 
     Returns a dict with ``opt_param`` (B, D), per-restart ``k_conv`` /
     ``k_Rhat`` / ``k_stopped`` lists (None where not reached),
@@ -460,14 +493,7 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
             _set_generator_state(g, state)
         # copies: segments write the rings in place, and the caller's
         # snapshot must stay valid
-        if len(rs["rings"]) != len(local):
-            raise ValueError(
-                f"resume_state holds {len(rs['rings'])} rings; this rank runs "
-                f"{len(local)} restarts: a resume needs the mesh shape of the run "
-                "that saved it")
-        rings = [None] * B
-        for b, r in zip(local, rs["rings"]):
-            rings[b] = torch.as_tensor(r).to(init_params).clone()
+        rings = _resume_rings(rs, local, B, init_params)
         if learning_rate is None:
             lr = np.asarray(rs["lr"], dtype=float).copy()
         if mcse_threshold is None:
@@ -716,6 +742,7 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
         "lr": run.lr.copy(),
         "mcse_thresholds": mcse_thresholds.copy(),
         "rings": [run.rings[b] for b in local],
+        **_ring_span(restarts, local, B),
         "t": run.t,
         "k": k,
         "k_conv": k_conv.copy(),

@@ -46,8 +46,8 @@ from ..faso import (HMC_DEVICE, RAABBVI, _backoff_adjust, _candidate_windows, _c
 from ..optimizers import RMSProp, StochasticGradientOptimizer
 from ..utils import Timer
 from .mesh import restart_axis_of
-from .multistart import (_BatchedEngine, _gather_owned, _RunState, multistart_faso,
-                         restart_generators)
+from .multistart import (_BatchedEngine, _gather_owned, _resume_rings, _ring_span,
+                         _RunState, multistart_faso, restart_generators)
 
 __all__ = ["multistart_raabbvi"]
 
@@ -749,14 +749,7 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
         for g, state in zip(hmc_generators, rs["hmc_generator_states"]):
             _set_generator_state(g, state)
         # copies: segments write the rings in place
-        if len(rs["rings"]) != len(local):
-            raise ValueError(
-                f"resume_state holds {len(rs['rings'])} rings; this rank runs "
-                f"{len(local)} restarts: a resume needs the mesh shape of the run "
-                "that saved it")
-        rings = [None] * B
-        for b, r in zip(local, rs["rings"]):
-            rings[b] = torch.as_tensor(r).to(init_params).clone()
+        rings = _resume_rings(rs, local, B, init_params)
         t, k, k_offset = int(rs["t"]), int(rs["k"]), int(rs["k_offset"])
         lr = np.asarray(rs["lr"], dtype=float).copy()
         mcse = np.asarray(rs["mcse"], dtype=float).copy()
@@ -842,6 +835,7 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
             "hmc_generator_states": torch.stack(engine.gather_list(
                 [g.get_state() for g in hmc_generators])),
             "rings": [run.rings[b].clone() if copy_rings else run.rings[b] for b in local],
+            **_ring_span(restarts, local, B),
             "t": run.t, "k": k, "k_offset": k_offset,
             "lr": lr.copy(), "mcse": mcse.copy(),
             "K_rem": K_rem.copy(), "k_total": k_total.copy(),

@@ -11,8 +11,7 @@ import time
 
 import torch
 
-__all__ = ["Timer", "ensure_2d", "not_ported", "deferred_names", "check_device",
-           "standard_gamma", "chisquare"]
+__all__ = ["Timer", "ensure_2d", "check_device", "standard_gamma", "chisquare"]
 
 
 class Timer:
@@ -96,22 +95,3 @@ def chisquare(generator, df, size, dtype, device):
                         device=device)
         return torch.sum(z**2, dim=-1)
     return 2.0 * standard_gamma(generator, 0.5 * df, size, dtype, device)
-
-
-def not_ported(what, item):
-    """The error every part of the JAX package that this port does not
-    cover yet raises, pointing at its ROADMAP.md item."""
-    return NotImplementedError(f"{what} is not ported to viabel_torch yet "
-                               f"(ROADMAP.md, Queue 1 item {item})")
-
-
-def deferred_names(module_name, names):
-    """A module ``__getattr__`` raising :func:`not_ported` for ``names``
-    (``{name: ROADMAP item}``) and ``AttributeError`` for anything else."""
-
-    def __getattr__(name):
-        if name in names:
-            raise not_ported(f"{module_name}.{name}", names[name])
-        raise AttributeError(f"module {module_name!r} has no attribute {name!r}")
-
-    return __getattr__
