@@ -1,7 +1,8 @@
 """Drive viabel_torch on one CUDA card: build the kernels, hold each against
 its plain PyTorch version, run bbvi's adaptive path at the flagship width,
 then vi_diagnostics on its result (the front door), the error-bounds branch
-at width, and the README quickstart; then the Student-t family's FASO run
+at width, RAABBVI's round regression (one HMC kernel launch a run) against
+its plain version, and the README quickstart; then the Student-t family's FASO run
 and its diagnostics, the CUBO and IWELBO objectives' training steps, a
 short run of each family, control-variate estimator and step rule that
 carries no kernel, and the kernels' new paths in float64 against the CPU;
@@ -12,7 +13,9 @@ standardization on a heteroscedastic target with vi_diagnostics in the
 user's space, the quasi-Monte Carlo base samplers, minibatch VI on a
 subsampled model, Pathfinder and bbvi's Pathfinder initialization, and the
 transforms, affine folds and scrambles in float64 against the CPU; then the
-C++ model bridge against the zoo and under bbvi, bbvi's multistart route
+C++ model bridge against the zoo and under bbvi, bbvi's RAABBVI route with
+its round regressions on the card (and a RAABBVI run stopped and resumed),
+bbvi's multistart route
 (lockstep RAABBVI over four restarts), and the multistart engines and
 restart selection in float64 against the CPU; then multistart RAABBVI on
 the lockstep and the async schedule side by side, the async schedule in
@@ -54,6 +57,9 @@ KERNEL_SOURCES = {
                             "viabel_tpu/ops/trsm.py:185"),
     "vmem_solve_triangular": ("viabel_torch/csrc/tri_solve.cu",
                               "viabel_tpu/ops/trsm.py:149"),
+    # no Pallas kernel: the jitted lax.scan (vmapped over chains) of the
+    # JAX package's HMC run
+    "wlr_hmc": ("viabel_torch/csrc/wlr_hmc.cu", "viabel_tpu/hmc.py:110"),
 }
 DEVICE = "cuda"
 FLAGSHIP_DIM = 1000
@@ -97,7 +103,8 @@ BRIDGE_TOL, BRIDGE_ITERS, BRIDGE_MOMENT_LIMIT = 1e-12, 2000, 0.05
 #: pipelining): the median coordinate's R-hat under 3 (a pure trend's is at
 #: most 2.65), its MCSE under 0.05 and its ESS over 1. 200 steps then hold
 #: exactly two rounds a restart (76 + 76 of the budget), the second ending
-#: in the round KL (kernel 3) and one host-side HMC regression a restart.
+#: in the round KL (kernel 3) and one HMC regression a restart (one wlr_hmc
+#: launch on the card).
 MS_RESTARTS, MS_ITERS, MS_JITTER, MS_RATE_STEPS = 4, 200, 0.01, 100
 MS_DETECTION = dict(W_min=50, k_check=25, check_pipeline=0, rhat_threshold=3.0,
                     rhat_quantile=0.5, mcse_threshold=0.05, ESS_min=1.0)
@@ -133,6 +140,19 @@ FS_ITERS, FS_RING_ROWS, FS_SHARDS, FS_GROUP = 1000, 600, 4, 50
 FSDP_ITERS, FSDP_TOL = 2000, 1e-3
 FSDP_BIG_DIM, FSDP_BIG_ITERS, FSDP_BIG_LR, FSDP_BIG_LOG_DIAG = 30000, 50, 2e-5, -2.0
 PFS_PATHS = 4  # [pathfinder_sharded]: paths at [pathfinder]'s d, L and J
+#: [hmc]: the regression kernel against its plain version at these round
+#: counts (N <= 32 fits one warp's lanes, 33 takes a second chunk), draw
+#: for draw over short runs (the sampler amplifies round-off within tens of
+#: iterations at 24 leapfrog steps): two whole trajectories, and every
+#: warmup branch (Welford over 12 iterations, the metric installed) at one
+#: leapfrog step; float64, sums reassociated
+WLR_ROWS, WLR_REPS, WLR_ATOL, WLR_RTOL = (4, 33), 5, 1e-9, 1e-10
+WLR_SHORT = {"trajectory": dict(num_warmup=0, num_samples=2, num_leapfrog=24),
+             "schedule": dict(num_warmup=24, num_samples=4, num_leapfrog=1)}
+#: [raabbvi_round]: at the [multistart] detection a round ends at k = 75
+#: (76 steps of the budget): 300 steps hold three rounds and two round
+#: regressions; the stopped run ends 8 steps into its third round
+RR_ITERS, RR_STOP = 300, 160
 #: NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, and FLOP/s outside the
 #: tensor cores by element type
 PEAK_BYTES_PER_S = 3.35e12
@@ -590,23 +610,196 @@ def phase_ksd_branch():
         raise AssertionError(f"{launches} launches of kernel 3, expected 39")
 
 
-def phase_hmc_placement():
-    """Time one RAABBVI weighted regression (4 chains x 1000 HMC
-    iterations x 24 leapfrog steps) on the card and on the host."""
-    from viabel_torch import RAABBVI, RMSProp
-    raabbvi = RAABBVI(RMSProp(0.01), rho=0.5)
-    rng = torch.Generator().manual_seed(3)
-    x = torch.log(torch.tensor([0.1, 0.05, 0.025, 0.0125], dtype=torch.float64))
-    y = 1.5 + 0.9 * x + 0.1 * torch.randn(4, generator=rng, dtype=torch.float64)
-    for device in (DEVICE, "cpu"):
-        gen = torch.Generator(device).manual_seed(4)
-        start = time.perf_counter()
-        _, kappa, c = raabbvi.weighted_linear_regression(
-            y.numpy(), x.numpy(), generator=gen, device=device)
-        if device == DEVICE:
+def wlr_case(N, d, C, seed, scatter=0.0):
+    """A weighted-regression posterior of N rounds (log SKL on log lr at
+    halving rates, RAABBVI's weights, rho 0.5) and C chain starts at
+    RAABBVI's, scattered by ``scatter``; float64 on the card."""
+    g = torch.Generator().manual_seed(seed)
+    x = math.log(0.1) + math.log(0.5) * torch.arange(N, dtype=torch.float64)
+    y = 1.5 + 1.2 * x + 0.1 * torch.randn(N, generator=g, dtype=torch.float64)
+    w = 1.0 / (1.0 + torch.arange(N - 1, -1, -1, dtype=torch.float64) ** 2 / 9.0) ** 0.25
+    mean_y = float(y.mean())
+    start = ([math.log(4.0), mean_y - 2.0 * math.log(0.5 ** -0.8 - 1.0)
+              - 1.6 * float(x.mean()), 0.0] if d == 3 else [mean_y, 0.0])
+    init = (torch.tensor(start, dtype=torch.float64)
+            + scatter * torch.randn((C, d), generator=g, dtype=torch.float64))
+    return init.to(DEVICE), tuple(t.to(DEVICE) for t in (y, x, w)) + (0.5,)
+
+
+def kappa_and_log_c(draws):
+    """The regression's kappa (1 for the averaged target) and log c
+    posterior means from ``(C, S, d)`` draws."""
+    flat = draws.reshape(-1, draws.shape[-1])
+    if draws.shape[-1] == 2:
+        return 1.0, float(flat[:, 0].mean())
+    return float(torch.sigmoid(flat[:, 0]).mean()), float(flat[:, 1].mean())
+
+
+def batch_mean_se(x, n_batches=20):
+    """Monte Carlo standard error of a mean of chain-major draws."""
+    means = x.reshape(n_batches, -1).mean(dim=1)
+    return float(means.std()) / math.sqrt(n_batches)
+
+
+def wlr_bound(N, d, C, T, L, n_samples):
+    """Least milliseconds for one regression run: the random numbers,
+    starts and rows read once and the draws written once; and the FLOP of
+    C chains of T (L + 1) evaluations (the general target 11 a row and
+    about 45 more, the averaged one 8 a row and about 30 more), 4 d for
+    each leapfrog step and about 12 d + 40 for each iteration's momentum,
+    energies, dual averaging and Welford sums."""
+    per_eval = 11 * N + 45 if d == 3 else 8 * N + 30
+    flops = C * (T * (L + 1) * per_eval + T * L * 4 * d + T * (12 * d + 40))
+    nbytes = 8 * (T * C * (d + 1) + C * d + 3 * N + C * n_samples * d)
+    return bound(nbytes, flops, torch.float64)
+
+
+def phase_hmc(results):
+    """RAABBVI's round regression, one wlr_hmc launch a run, against its
+    plain version (hmc_sample on the analytic targets) on the card, both
+    targets at N = 4 and N = 33 rounds. From one generator state both
+    take the same random numbers. Draw for draw over the short runs where
+    the sampler has not yet amplified the reassociated sums' last bits
+    (WLR_SHORT: two whole trajectories from scattered starts, and every
+    warmup branch at one leapfrog step): draws within WLR_ATOL, kappa and c
+    within WLR_RTOL. At RAABBVI's settings (4 chains, 500 + 500
+    iterations, 24 leapfrog steps) the chains part, so the whole run is
+    held in distribution: the posterior means of kappa and log c within 4
+    batch-means standard errors; the largest differences and each chain's
+    first sampled iteration that differs are printed. Then the kernel's time
+    (median of WLR_REPS calls after a warm-up, each ending in a
+    synchronisation), the plain version's on the card and on the host
+    (one call each), and the launches."""
+    from viabel_torch import ops
+    worst = 0.0
+    for d in (3, 2):
+        for N in WLR_ROWS:
+            for name, settings in WLR_SHORT.items():
+                init, data = wlr_case(N, d, 4, seed=80 + N + d, scatter=0.3)
+                gen = torch.Generator(DEVICE).manual_seed(81 + N + d)
+                state = gen.get_state()
+                K = ops.wlr_hmc(init, gen, data, **settings)
+                gen.set_state(state)
+                P = ops.wlr_hmc_plain(init, gen, data, **settings)
+                torch.cuda.synchronize()
+                err = float((K - P).abs().max())
+                (kk, lk), (kp, lp) = kappa_and_log_c(K), kappa_and_log_c(P)
+                kappa_rel, c_rel = abs(kk - kp) / kp, abs(math.expm1(lk - lp))
+                log(f"[hmc] short {name} d={d} N={N} C=4 {settings}: draws max_abs_err="
+                    f"{err:.3e} (limit {WLR_ATOL}) kappa rel_err={kappa_rel:.3e} c rel_err="
+                    f"{c_rel:.3e} (limit {WLR_RTOL})")
+                if not (err <= WLR_ATOL and kappa_rel <= WLR_RTOL and c_rel <= WLR_RTOL):
+                    raise AssertionError(f"[hmc] short {name} d={d} N={N}: kernel against "
+                                         f"plain {err}, kappa {kappa_rel}, c {c_rel}")
+                worst = max(worst, err)
+            init, data = wlr_case(N, d, 4, seed=90 + N + d)
+            gen = torch.Generator(DEVICE).manual_seed(91 + N + d)
+            state = gen.get_state()
+            ops.reset_launch_counts()
+            K = ops.wlr_hmc(init, gen, data)
             torch.cuda.synchronize()
-        log(f"[hmc] device={device} seconds={time.perf_counter() - start:.3f} "
-            f"kappa={kappa:.4f} c={c:.4f}")
+            launches = ops.launch_counts()["wlr_hmc"]
+            gen.set_state(state)
+            start = time.perf_counter()
+            P = ops.wlr_hmc_plain(init, gen, data)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - start
+            host = (init.cpu(), torch.Generator().manual_seed(92 + N + d),
+                    tuple(t.cpu() for t in data[:3]) + data[3:])
+            start = time.perf_counter()
+            H = ops.wlr_hmc_plain(*host)
+            host_s = time.perf_counter() - start
+            if K.shape != (4, 500, d) or not torch.isfinite(K).all():
+                raise AssertionError(f"[hmc] d={d} N={N}: draws {tuple(K.shape)} not finite")
+            diff = (K - P).abs().amax(dim=2)
+            parted = [int(torch.nonzero(row > WLR_ATOL)[0]) + 500 if (row > WLR_ATOL).any()
+                      else None for row in diff]
+            (kk, lk), (kp, lp), (kh, lh) = map(kappa_and_log_c, (K, P, H))
+            log(f"[hmc] full d={d} N={N}: draws max_abs_diff={float(diff.max()):.3e}; each "
+                f"chain's first sampled iteration off by > {WLR_ATOL} (warmup positions are not "
+                f"returned: 500 means at or before the first sample): {parted}; "
+                f"kappa kernel/plain/host={kk:.6f}/{kp:.6f}/{kh:.6f} log_c="
+                f"{lk:.6f}/{lp:.6f}/{lh:.6f} (c abs diff {abs(math.exp(lk) - math.exp(lp)):.3e})")
+            cols = {"log_c": lambda v: v[..., d - 2].reshape(-1)}
+            if d == 3:
+                cols["kappa"] = lambda v: torch.sigmoid(v[..., 0]).reshape(-1)
+            for col, fn in cols.items():
+                a, b = fn(K), fn(P)
+                se = math.hypot(batch_mean_se(a), batch_mean_se(b))
+                z = abs(float(a.mean() - b.mean())) / se
+                log(f"[hmc] full d={d} N={N}: {col} kernel - plain = {z:.3f} standard errors "
+                    f"(limit 4)")
+                if not z < 4:
+                    raise AssertionError(f"[hmc] d={d} N={N}: {col} {z} standard errors apart")
+            ms = cuda_ms(lambda: ops.wlr_hmc(init, gen, data), reps=WLR_REPS, warmup=1)
+            T, L = 1000, 24
+            b = wlr_bound(N, d, 4, T, L, 500)
+            log(f"[hmc] d={d} N={N}: kernel_ms={ms:.4f} ({ms / (T * (L + 1)) * 1e3:.4f} us a "
+                f"dependent evaluation, {T * (L + 1)} a chain) plain_card_ms={plain_s * 1e3:.1f} "
+                f"plain_host_ms={host_s * 1e3:.1f} bound_ms={b['bound_ms']:.6f} "
+                f"({b['bound_by']}) launches={launches}")
+            if launches != 1:
+                raise AssertionError(f"[hmc] {launches} launches for one regression run")
+            if (d, N) == (3, 4):
+                results["wlr_hmc"] = {
+                    "max_abs_err": None, "ms": ms, "plain_ms": plain_s * 1e3, **b,
+                    "library_ms": None, "plain_host_ms": host_s * 1e3,
+                    "ms_per_dependent_evaluation": ms / (T * (L + 1)),
+                    "full_run_max_abs_diff": float(diff.max())}
+    results["wlr_hmc"]["max_abs_err"] = worst
+
+
+def phase_raabbvi_round(path_launches):
+    """bbvi's RAABBVI route on the [main] configuration with the
+    [multistart] detection (each round ends at k = 75): 300 steps hold
+    three rounds and two round regressions, each one wlr_hmc launch on the
+    card. Then RAABBVI stopped inside its third round, its resume state
+    (the HMC generator's 16-byte card state among it) resumed against the
+    uninterrupted run: rounds, kappa, c and the optimum equal to the bit."""
+    import viabel_torch as vt
+    d = FLAGSHIP_DIM
+    approx = vt.FullRankGaussian(d, device=DEVICE, dtype=torch.float32)
+    objective = vt.ExclusiveKL(approx, flagship_model(), 10, use_path_deriv=True)
+    settings = dict(max_history=600, **MS_DETECTION)
+    with TimedRegression() as hmc:
+        res, wall, launches = timed_run(lambda: vt.bbvi(
+            d, objective=objective, n_iters=RR_ITERS, learning_rate=FLAGSHIP_LR,
+            RAABBVI_kwargs=settings, generator=torch.Generator(DEVICE).manual_seed(66)))
+    path_launches["raabbvi_round"] = launches
+    log(f"[raabbvi_round] n_iters={RR_ITERS} k_mcse={res['k_mcse']} kappa_hist="
+        f"{res['kappa_hist']} c_hist={res['c_hist']} wall_s={wall:.3f} hmc_s="
+        f"{hmc.seconds:.3f} hmc_calls={hmc.calls} launches={launches}")
+    if hmc.calls < 1 or launches["wlr_hmc"] != hmc.calls:
+        raise AssertionError(f"[raabbvi_round] {launches['wlr_hmc']} wlr_hmc launches for "
+                             f"{hmc.calls} regressions")
+
+    def run(K, resume_state=None):
+        opt = vt.RAABBVI(vt.RMSProp(FLAGSHIP_LR), **settings)
+        gen = torch.Generator(DEVICE)
+        if resume_state is None:
+            gen.manual_seed(67)
+        return opt.optimize(K, objective, approx.init_param(), generator=gen,
+                            resume_state=resume_state)
+
+    full = run(RR_ITERS)
+    part = run(RR_STOP)
+    state = part["resume_state"]
+    log(f"[raabbvi_round] stopped at K={RR_STOP}: k_mcse={part['k_mcse']} hmc_generator_state "
+        f"bytes={state['hmc_generator_state'].numel()} (a card generator's)")
+    if state["hmc_generator_state"].numel() != torch.Generator(DEVICE).get_state().numel():
+        raise AssertionError("[raabbvi_round] the HMC generator is not on the card")
+    resumed = run(RR_ITERS, resume_state=state)
+    for name in ("k_conv", "k_Rhat", "k_mcse", "kappa_hist", "c_hist", "learning_rate_hist"):
+        if list(np.atleast_1d(resumed[name])) != list(np.atleast_1d(full[name])):
+            raise AssertionError(f"[raabbvi_round] resumed {name} {resumed[name]} != "
+                                 f"uninterrupted {full[name]}")
+    if not torch.equal(resumed["opt_param"], full["opt_param"]) or len(full["kappa_hist"]) < 2:
+        raise AssertionError("[raabbvi_round] resumed optimum differs or fewer than two "
+                             "regressions")
+    log(f"[raabbvi_round] resumed = uninterrupted (kappa_hist {full['kappa_hist']}), "
+        "bit-equal")
+    del res, full, part, resumed, state, objective
+    torch.cuda.empty_cache()
 
 
 def phase_quickstart():
@@ -1506,10 +1699,11 @@ def phase_multistart(path_launches, main_steps_per_s):
         f"lr={FLAGSHIP_LR} RAABBVI_kwargs={settings} (iters0 1000, rho 0.5)")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    res, wall, launches = timed_run(lambda: vt.bbvi(
-        d, objective=objective, n_iters=MS_ITERS, learning_rate=FLAGSHIP_LR,
-        num_restarts=MS_RESTARTS, init_jitter=MS_JITTER, RAABBVI_kwargs=settings,
-        generator=torch.Generator(DEVICE).manual_seed(62)))
+    with TimedRegression() as hmc:
+        res, wall, launches = timed_run(lambda: vt.bbvi(
+            d, objective=objective, n_iters=MS_ITERS, learning_rate=FLAGSHIP_LR,
+            num_restarts=MS_RESTARTS, init_jitter=MS_JITTER, RAABBVI_kwargs=settings,
+            generator=torch.Generator(DEVICE).manual_seed(62)))
     path_launches["multistart"] = launches
     steps = res["k_global_steps"]
     boundaries = sum(len(h) for h in res["SKL_history"])
@@ -1518,7 +1712,8 @@ def phase_multistart(path_launches, main_steps_per_s):
         f"k_global_steps={steps} k_total={res['k_total']} "
         f"conv_iters={res['conv_iters_hist']} lr_hist={res['learning_rate_hist']}")
     log(f"[multistart] wall_s={wall:.3f} (checks, HMC regressions and the selection "
-        f"included) lockstep_steps_per_s={rate:.2f} main_single_run_steps_per_s="
+        f"included) hmc_s={hmc.seconds:.3f} hmc_calls={hmc.calls} wlr_hmc_launches="
+        f"{launches['wlr_hmc']} lockstep_steps_per_s={rate:.2f} main_single_run_steps_per_s="
         f"{main_steps_per_s:.2f} max_memory_allocated_bytes="
         f"{torch.cuda.max_memory_allocated()}")
     log(f"[multistart] best_restart={res['best_restart']} restart_elbos="
@@ -1538,6 +1733,9 @@ def phase_multistart(path_launches, main_steps_per_s):
     if launches["vmem_solve_triangular"] != 4 * boundaries:
         raise AssertionError(f"[multistart] {launches['vmem_solve_triangular']} triangular "
                              f"solves for {boundaries} round KLs (four solves each)")
+    if hmc.calls < MS_RESTARTS or launches["wlr_hmc"] != hmc.calls:
+        raise AssertionError(f"[multistart] {launches['wlr_hmc']} wlr_hmc launches for "
+                             f"{hmc.calls} regressions")
     # the per-restart loop's host cost: the same 100 fixed-rate steps as
     # four lockstep restarts and as one run, in this call
     x0 = res["init_var_params"]
@@ -1653,8 +1851,9 @@ def round_lengths(res):
 
 
 class TimedRegression:
-    """RAABBVI's weighted regression (the host-side HMC), timed: seconds
-    and calls, while installed."""
+    """RAABBVI's weighted regression (its HMC run, one wlr_hmc launch on
+    the card, read back before it returns), timed: seconds and calls,
+    while installed."""
 
     def __init__(self):
         import viabel_torch as vt
@@ -1717,8 +1916,8 @@ def phase_multistart_async(path_launches):
             f"k_stopped_final={res['k_stopped_final']} "
             f"budget_overrun={res['budget_overrun']} lr_hist={res['learning_rate_hist']}")
         log(f"[multistart_async] [{schedule}] wall_s={wall:.3f} hmc_s={hmc.seconds:.3f} "
-            f"hmc_calls={hmc.calls} round_kls={kls} max_memory_allocated_bytes={peak} "
-            f"launches={launches}")
+            f"hmc_calls={hmc.calls} wlr_hmc_launches={launches['wlr_hmc']} round_kls={kls} "
+            f"max_memory_allocated_bytes={peak} launches={launches}")
         if not torch.isfinite(res["opt_param"]).all():
             raise AssertionError(f"[multistart_async] [{schedule}] an optimum is not finite")
         for name, count in launches.items():
@@ -1733,6 +1932,9 @@ def phase_multistart_async(path_launches):
             raise AssertionError(f"[multistart_async] [{schedule}] "
                                  f"{launches['vmem_solve_triangular']} triangular solves for "
                                  f"{kls} round KLs (four solves each)")
+        if launches["wlr_hmc"] != hmc.calls:
+            raise AssertionError(f"[multistart_async] [{schedule}] {launches['wlr_hmc']} "
+                                 f"wlr_hmc launches for {hmc.calls} regressions")
         runs[schedule] = (steps, wall)
         if schedule == "async":
             path_launches["multistart_async"] = launches
@@ -2418,7 +2620,7 @@ def main():
     del res, objective
     phase_error_bounds()
     phase_ksd_branch()
-    phase_hmc_placement()
+    phase_hmc(results)
     phase_quickstart()
     phase_paths_f64()
     phase_student_t()
@@ -2436,6 +2638,7 @@ def main():
     phase_pathfinder(path_launches)
     phase_extras_f64()
     phase_bridge(path_launches)
+    phase_raabbvi_round(path_launches)
     phase_multistart(path_launches, main_steps_per_s)
     phase_multistart_f64()
     phase_multistart_async(path_launches)

@@ -25,6 +25,7 @@ import viabel_tpu as vj  # noqa: E402
 import viabel_tpu.faso as jfaso  # noqa: E402
 import viabel_torch as vt  # noqa: E402
 import viabel_torch.faso as tfaso  # noqa: E402
+from viabel_torch.ops.wlr import wlr_averaged, wlr_general  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -253,7 +254,7 @@ def test_hmc_regression_posterior_matches_jax():
         jfaso._wlr_logprob_general, jax.numpy.asarray(init), jax.random.PRNGKey(0),
         data=tuple(map(jax.numpy.asarray, (y, x, w, 0.5))), **settings))
     data_t = (torch.as_tensor(y), torch.as_tensor(x), torch.as_tensor(w), 0.5)
-    draws_t = torch_hmc(tfaso._wlr_general, torch.as_tensor(init),
+    draws_t = torch_hmc(wlr_general, torch.as_tensor(init),
                         torch.Generator().manual_seed(0), data=data_t,
                         **settings).numpy()
     for name, col, fn in (("kappa", 0, lambda v: 1 / (1 + np.exp(-v))),
@@ -280,7 +281,7 @@ def test_wlr_log_density_and_gradient_match_jax(averaged, seed):
     rho = 0.5
     width = 2 if averaged else 3
     points = rng.randn(4, width) * (2.0 if averaged else [1.5, 2.0, 1.0])
-    port_fn = tfaso._wlr_averaged if averaged else tfaso._wlr_general
+    port_fn = wlr_averaged if averaged else wlr_general
     jax_fn = jfaso._wlr_logprob_averaged if averaged else jfaso._wlr_logprob_general
     data_t = (torch.as_tensor(y), torch.as_tensor(x), torch.as_tensor(w), rho)
     theta = torch.as_tensor(points).requires_grad_(True)

@@ -10,6 +10,7 @@ version and skip without a card; on a machine with one, run them with
 """
 
 import inspect
+import math
 
 import pytest
 
@@ -19,6 +20,7 @@ import viabel_torch as vt  # noqa: E402
 from viabel_torch import ops  # noqa: E402
 from viabel_torch.families import _tri_solve  # noqa: E402
 from viabel_torch.ops import _build  # noqa: E402
+from viabel_torch.ops.wlr import KERNEL_MAX_ROWS  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -58,8 +60,13 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
                            ops.vmem_solve_triangular_plain(TT, B, lower))
         assert torch.equal(_tri_solve(TT, B, lower),
                            ops.vmem_solve_triangular_plain(TT, B, lower))
+    init, data = _wlr_case(4, 3, 2, torch.device("cpu"))
+    settings = dict(num_warmup=6, num_samples=4, num_leapfrog=3)
+    assert torch.equal(ops.wlr_hmc(init, torch.Generator().manual_seed(0), data, **settings),
+                       ops.wlr_hmc_plain(init, torch.Generator().manual_seed(0), data,
+                                         **settings))
     assert ops.launch_counts() == {"ring_group_stats": 0, "stl_transpose_solve": 0,
-                                   "vmem_solve_triangular": 0}
+                                   "vmem_solve_triangular": 0, "wlr_hmc": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -80,6 +87,31 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         ops.vmem_solve_triangular(torch.eye(4, dtype=torch.float64),
                                   torch.zeros(3, 1, dtype=torch.float64))
+    gen = torch.Generator().manual_seed(0)
+    state = gen.get_state()
+    init, data = _wlr_case(4, 3, 2, torch.device("cpu"))
+    for d in (1, 4):  # the kernel has the d = 3 and d = 2 targets only
+        with pytest.raises(ValueError, match="d = 3"):
+            ops.wlr_hmc(torch.zeros(2, d, dtype=torch.float64), gen, data)
+    y, x, w, rho = data
+    with pytest.raises(ValueError, match="one length"):
+        ops.wlr_hmc(init, gen, (y, x[:2], w, rho))
+    with pytest.raises(ValueError, match="num_leapfrog"):
+        ops.wlr_hmc(init, gen, data, num_leapfrog=0)
+    assert torch.equal(gen.get_state(), state)  # a refused call draws nothing
+
+
+def _wlr_case(N, d, C, device, seed=0):
+    """A weighted-regression posterior of N rounds (log SKL on log lr) and
+    C chain starts scattered around RAABBVI's, float64 on ``device``."""
+    g = torch.Generator().manual_seed(100 * N + 10 * d + seed)
+    x = math.log(0.1) + math.log(0.5) * torch.arange(N, dtype=torch.float64)
+    y = 1.5 + 1.2 * x + 0.1 * torch.randn(N, generator=g, dtype=torch.float64)
+    w = 1.0 / (1.0 + torch.arange(N - 1, -1, -1, dtype=torch.float64) ** 2 / 9.0) ** 0.25
+    start = [math.log(4.0), float(y.mean()), 0.0] if d == 3 else [float(y.mean()), 0.0]
+    init = (torch.tensor(start, dtype=torch.float64)
+            + 0.3 * torch.randn((C, d), generator=g, dtype=torch.float64))
+    return init.to(device), (y.to(device), x.to(device), w.to(device), 0.5)
 
 
 #: every entry point that places tensors, with a call that names no device
@@ -298,6 +330,9 @@ def test_cuda_path_raises_when_the_loader_fails(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="loader failed"):
         ops.vmem_solve_triangular(torch.eye(4, device=cuda),
                                   torch.zeros(4, 1, device=cuda))
+    init, data = _wlr_case(4, 3, 2, cuda)
+    with pytest.raises(RuntimeError, match="loader failed"):
+        ops.wlr_hmc(init, torch.Generator(cuda).manual_seed(0), data)
 
 
 TRI_SHAPES = [(8, 3, True), (130, 5, False), (300, 7, True), (1000, 10, False),
@@ -453,7 +488,7 @@ def test_multivariate_t_stl_hook_on_the_card_matches_cpu(cuda, d):
         after = ops.launch_counts()
         results.append((f, g, {k: after[k] - before[k] for k in after}))
     assert results[0][2] == {"ring_group_stats": 0, "stl_transpose_solve": 1,
-                             "vmem_solve_triangular": 0}
+                             "vmem_solve_triangular": 0, "wlr_hmc": 0}
     _assert_rel_close(results[0][0], results[1][0])
     _assert_rel_close(results[0][1], results[1][1])
 
@@ -486,9 +521,9 @@ def test_iwelbo_on_the_card_matches_cpu(cuda, kind, use_dreg):
     after = ops.launch_counts()
     moved = {k: after[k] - before[k] for k in after}
     assert moved == ({"ring_group_stats": 0, "stl_transpose_solve": 1,
-                      "vmem_solve_triangular": 0} if use_dreg else
+                      "vmem_solve_triangular": 0, "wlr_hmc": 0} if use_dreg else
                      {"ring_group_stats": 0, "stl_transpose_solve": 0,
-                      "vmem_solve_triangular": 2})
+                      "vmem_solve_triangular": 2, "wlr_hmc": 0})
     val, grad = vt.IWELBO(cpu, model, 10, use_dreg=use_dreg).value_and_grad(vp, None)
     _assert_rel_close(val_c, val)
     _assert_rel_close(grad_c, grad)
@@ -576,3 +611,149 @@ def test_load_pytree_places_leaves_on_the_template_device(cuda, tmp_path):
     assert restored["t"] == 3
     flat = load_pytree(path, device=cuda)
     assert all(x.device.type == "cuda" for x in flat)
+
+
+#: kernel against plain version, draw for draw, over runs short enough that
+#: the sampler has not amplified the reassociated sums' last bits (at 24
+#: leapfrog steps it takes a 1e-15 change past 1e-9 within tens of
+#: iterations: tests/test_torch_wlr_hmc.py::test_hmc_sampler_amplifies_round_off):
+#: two whole RAABBVI trajectories from C scattered starts, and every branch
+#: of the schedule (dual averaging, Welford over 12 iterations, the metric
+#: installed, dual averaging restarted, sampling at the averaged step) at
+#: one leapfrog step
+WLR_SETTINGS = {"trajectory": dict(num_warmup=0, num_samples=2, num_leapfrog=24),
+                "schedule": dict(num_warmup=24, num_samples=4, num_leapfrog=1)}
+
+
+def _kappa_and_c(draws):
+    """The regression's (kappa, c) from ``(C, S, d)`` draws, as
+    ``RAABBVI.weighted_linear_regression`` forms them."""
+    flat = draws.reshape(-1, draws.shape[-1])
+    if draws.shape[-1] == 2:
+        return 1.0, math.exp(float(flat[:, 0].mean()))
+    return float(torch.sigmoid(flat[:, 0]).mean()), math.exp(float(flat[:, 1].mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", sorted(WLR_SETTINGS))
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("d", [3, 2])
+@pytest.mark.parametrize("N", [1, 4, 33])
+def test_wlr_hmc_kernel_matches_plain(cuda, N, d, C, setting):
+    """One launch; the same random numbers as the plain version (the
+    generator ends in the same state); the draws within 1e-9 absolute and
+    kappa and c within 1e-10 relative (float64, sums reassociated)."""
+    init, data = _wlr_case(N, d, C, cuda)
+    settings = WLR_SETTINGS[setting]
+    gen = torch.Generator(cuda).manual_seed(N + d + C)
+    state = gen.get_state()
+    before = ops.launch_counts()["wlr_hmc"]
+    K = ops.wlr_hmc(init, gen, data, **settings)
+    assert ops.launch_counts()["wlr_hmc"] == before + 1
+    after = gen.get_state()
+    gen.set_state(state)
+    P = ops.wlr_hmc_plain(init, gen, data, **settings)
+    torch.cuda.synchronize()
+    assert torch.equal(gen.get_state(), after)
+    assert K.shape == P.shape == (C, settings["num_samples"], d) and K.is_cuda
+    assert float((K - P).abs().max()) <= 1e-9
+    for got, want in zip(_kappa_and_c(K), _kappa_and_c(P)):
+        assert math.isclose(got, want, rel_tol=1e-10)
+
+
+def _batch_mean_se(x, n_batches=20):
+    means = x.reshape(n_batches, -1).mean(dim=1)
+    return float(means.std() / math.sqrt(n_batches))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 2])
+def test_wlr_hmc_kernel_full_run_matches_plain_in_distribution(cuda, d):
+    """At RAABBVI's settings (4 chains, 500 + 500 iterations, 24 leapfrog
+    steps) the chains part from the plain version's (the sampler amplifies
+    round-off), so the whole run is held statistically: the posterior
+    means of kappa (d = 3) and log c within 4 batch-means Monte Carlo
+    standard errors of the plain version's on the card."""
+    init, data = _wlr_case(4, d, 4, cuda)
+    gen = torch.Generator(cuda).manual_seed(7)
+    state = gen.get_state()
+    K = ops.wlr_hmc(init, gen, data)
+    gen.set_state(state)
+    P = ops.wlr_hmc_plain(init, gen, data)
+    assert K.shape == (4, 500, d) and torch.isfinite(K).all()
+    cols = {"log_c": (lambda v: v[..., d - 2])}
+    if d == 3:
+        cols["kappa"] = lambda v: torch.sigmoid(v[..., 0])
+    for name, fn in cols.items():
+        a, b = fn(K).reshape(-1), fn(P).reshape(-1)
+        se = math.hypot(_batch_mean_se(a), _batch_mean_se(b))
+        assert abs(float(a.mean() - b.mean())) < 4 * se, name
+
+
+@pytest.mark.cuda
+def test_wlr_hmc_raises_on_what_the_kernel_does_not_take(cuda):
+    init, (y, x, w, rho) = _wlr_case(4, 3, 2, cuda)
+    gen = torch.Generator(cuda).manual_seed(0)
+    before = ops.launch_counts()["wlr_hmc"]
+    with pytest.raises(TypeError):
+        ops.wlr_hmc(init.float(), gen, (y.float(), x.float(), w.float(), rho))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.wlr_hmc(init, gen, (torch.stack([y, y], 1)[:, 0], x, w, rho))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.wlr_hmc(init.T.contiguous().T, gen, (y, x, w, rho))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.wlr_hmc(init, gen, (y.cpu(), x, w, rho))
+    big = torch.zeros(KERNEL_MAX_ROWS + 1, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        ops.wlr_hmc(init, gen, (big, big, big, rho))
+    assert ops.launch_counts()["wlr_hmc"] == before
+
+
+class _TableNormal:
+    """Base draws as consecutive rows of one seeded table, on any device."""
+
+    def __init__(self, seed, rows, width):
+        self.table = torch.randn((rows, width), dtype=torch.float64,
+                                 generator=torch.Generator().manual_seed(seed))
+        self.pos = 0
+
+    def normal(self, generator, n_samples, width, dtype, device):
+        rows = self.table[self.pos:self.pos + n_samples, :width]
+        self.pos += n_samples
+        return rows.to(device=device, dtype=dtype)
+
+
+@pytest.mark.cuda
+def test_round_regression_runs_on_the_card(cuda, monkeypatch):
+    """The cuda twin of tests/test_torch_wlr_hmc.py::
+    test_regression_runs_on_the_generator_device: a regression handed a
+    card generator launches the kernel once and leaves its fit on the
+    card; RAABBVI.optimize on card tensors launches it once a regression
+    and keeps a card generator's 16-byte state for its HMC."""
+    helper = vt.RAABBVI(vt.RMSProp(0.1))
+    x = [math.log(0.1 * 0.5 ** k) for k in range(4)]
+    y = [1.5 + 1.2 * v for v in x]
+    before = ops.launch_counts()["wlr_hmc"]
+    fit, kappa, c = helper.weighted_linear_regression(
+        y, x, generator=torch.Generator(cuda).manual_seed(0))
+    assert ops.launch_counts()["wlr_hmc"] == before + 1
+    assert fit["kappa"].is_cuda and 0 < kappa < 1 and c > 0
+    calls = []
+    real = vt.RAABBVI.weighted_linear_regression
+
+    def counted(self, *args, **kwargs):
+        calls.append(kwargs["generator"].device.type)
+        return real(self, *args, **kwargs)
+
+    monkeypatch.setattr(vt.RAABBVI, "weighted_linear_regression", counted)
+    model, _ = vt.zoo.logistic_regression(dim=4, n_data=40, device=cuda,
+                                          dtype=torch.float64)
+    approx = vt.FullRankGaussian(4, base_sampler=_TableNormal(1, 60000, 4), device=cuda,
+                                 dtype=torch.float64)
+    objective = vt.ExclusiveKL(approx, model, 4, use_path_deriv=True)
+    before = ops.launch_counts()["wlr_hmc"]
+    res = vt.RAABBVI(vt.RMSProp(0.1, diagnostics=True), W_min=50, k_check=50).optimize(
+        360, objective, approx.init_param(), generator=torch.Generator(cuda).manual_seed(0))
+    assert len(calls) >= 1 and set(calls) == {"cuda"}
+    assert ops.launch_counts()["wlr_hmc"] - before == len(calls) == len(res["kappa_hist"])
+    assert all(math.isfinite(k) for k in res["kappa_hist"])

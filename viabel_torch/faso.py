@@ -50,27 +50,19 @@ import numpy as np
 import torch
 
 from .families import MFGaussian
-from .hmc import hmc_sample
 from .mc_diagnostics import (ess_and_mcse_windowed, ring_window_mean,
                              split_rhat_ring_windows)
 from .ops.ringstats import colsum
+from .ops.wlr import wlr_hmc
 from .optimizers import (AveragedAdam, AveragedRMSProp, Optimizer, RMSProp,
                          StochasticGradientOptimizer, _obj_check_state, _obj_init_state,
                          default_generator)
-from .utils import Timer
+from .utils import Timer, check_device
 
 __all__ = ["FASO", "RAABBVI", "merge_resume_states"]
 
 # indirection so tests can stub the recheck-schedule clock deterministically
 _now = time.perf_counter
-
-#: Device of RAABBVI's weighted-regression HMC (4 chains x 1000 iterations x
-#: 24 leapfrog steps on a 2-3 parameter posterior). Each leapfrog step is a
-#: few dozen tiny tensor operations, so on a GPU the run is bound by kernel
-#: launches; RAABBVI therefore runs it on the host on purpose, not as a
-#: fallback. chip_smoke.py's "hmc" phase times both placements (PERF.md).
-HMC_DEVICE = "cpu"
-
 
 def _clamp_stat(value):
     """Plateau-tracker entries clamped to a large finite value (an
@@ -886,63 +878,6 @@ class FASO(Optimizer):
         return results
 
 
-def _wlr_general(theta, data):
-    """Posterior of the reference's weighted_lin_regression.stan (kappa
-    free) and its gradient, batched over chains: ``y ~ N(log_c + 2
-    log(rho^{-kappa} - 1) + 2 kappa x, sigma)`` with per-observation
-    weights; kappa ~ U(0,1) (logit transform), log_c ~ Cauchy(0,10),
-    sigma ~ HalfCauchy(0,10). ``theta``: ``(C, 3)`` rows ``(logit kappa,
-    log_c, log_sigma)``. Returns ``((C,), (C, 3))``."""
-    y, x, w, rho = data
-    kappa_logit, log_c, log_sigma = theta.unbind(1)
-    kappa = torch.sigmoid(kappa_logit)
-    inv_sigma = torch.exp(-log_sigma)
-    r_m1 = torch.expm1(-math.log(rho) * kappa)           # rho^-kappa - 1
-    mu = torch.addcmul((log_c + 2.0 * torch.log(r_m1))[:, None],
-                       2.0 * kappa[:, None], x)
-    e = (y - mu) * inv_sigma[:, None]
-    we = w * e
-    wee = torch.sum(we * e, dim=1)
-    wsum = torch.sum(w)
-    c2 = (0.1 * log_c) ** 2
-    s2 = (0.1 / inv_sigma) ** 2
-    lp = (-0.5 * wee - wsum * log_sigma
-          + torch.log(kappa) + torch.log1p(-kappa)        # U(0,1) + jacobian
-          - torch.log1p(c2)                               # Cauchy(0,10)
-          - torch.log1p(s2) + log_sigma)                  # HalfCauchy + jac.
-    g_mu = we * inv_sigma[:, None]                        # d loglik / d mu
-    sum_g = torch.sum(g_mu, dim=1)
-    # d mu / d kappa = -2 log(rho) rho^-kappa / (rho^-kappa - 1) + 2 x
-    dlik_dkappa = (sum_g * (-2.0 * math.log(rho)) * (r_m1 + 1.0) / r_m1
-                   + 2.0 * (g_mu @ x))
-    grad = torch.stack([
-        dlik_dkappa * kappa * (1.0 - kappa) + 1.0 - 2.0 * kappa,
-        sum_g - 0.02 * log_c / (1.0 + c2),
-        wee - wsum - 2.0 * s2 / (1.0 + s2) + 1.0], dim=1)
-    return lp, grad
-
-
-def _wlr_averaged(theta, data):
-    """kappa == 1 variant (weighted_lin_regression_sgd.stan) and its
-    gradient; ``theta``: ``(C, 2)`` rows ``(log_c, log_sigma)``."""
-    y, x, w, rho = data
-    log_c, log_sigma = theta.unbind(1)
-    inv_sigma = torch.exp(-log_sigma)
-    mu = (log_c + 2.0 * math.log(1.0 / rho - 1.0))[:, None] + 2.0 * x
-    e = (y - mu) * inv_sigma[:, None]
-    we = w * e
-    wee = torch.sum(we * e, dim=1)
-    wsum = torch.sum(w)
-    c2 = (0.1 * log_c) ** 2
-    s2 = (0.1 / inv_sigma) ** 2
-    lp = (-0.5 * wee - wsum * log_sigma - torch.log1p(c2)
-          - torch.log1p(s2) + log_sigma)
-    grad = torch.stack([
-        torch.sum(we * inv_sigma[:, None], dim=1) - 0.02 * log_c / (1.0 + c2),
-        wee - wsum - 2.0 * s2 / (1.0 + s2) + 1.0], dim=1)
-    return lp, grad
-
-
 class RAABBVI(FASO):
     """Robust, automated, and accurate BBVI (reference optimization.py:635-931).
 
@@ -969,43 +904,42 @@ class RAABBVI(FASO):
         return isinstance(self._sgo, (AveragedRMSProp, AveragedAdam))
 
     def weighted_linear_regression(self, y, x, s=9.0, a=0.25, n_chains=4,
-                                   generator=None, device=HMC_DEVICE):
+                                   generator=None, device="cuda"):
         """Bayesian weighted regression of ``log SKL`` on ``log lr``
-        (the reference's Stan programs, sampled with :func:`hmc_sample`):
-        weights ``w_n = 1/(1 + rev_idx^2/s)^a`` (reference
-        optimization.py:711). ``generator`` must lie on ``device``.
+        (the reference's Stan programs, sampled by HMC through
+        :func:`viabel_torch.ops.wlr_hmc`): weights ``w_n = 1/(1 +
+        rev_idx^2/s)^a`` (reference optimization.py:711). The run goes to
+        ``generator``'s device (one kernel launch on a card); ``device``
+        places the seed-0 generator made when none is given.
 
         Returns ``(fit_samples_dict, kappa, c)``.
         """
         if generator is None:
-            generator = default_generator(device)
-        y = torch.as_tensor(np.asarray(y, dtype=float), device=device)
-        x = torch.as_tensor(np.asarray(x, dtype=float), device=device)
+            generator = default_generator(check_device(device))
+        device = generator.device
+        y = np.asarray(y, dtype=float)
+        x = np.asarray(x, dtype=float)
         N = y.shape[0]
-        w = 1.0 / (1.0 + torch.arange(N - 1, -1, -1, dtype=y.dtype,
-                                      device=device) ** 2 / s) ** a
-        data = (y, x, w, self._rho)
-        mean_y = float(np.mean(y.cpu().numpy()))
+        w = 1.0 / (1.0 + np.arange(N - 1, -1, -1, dtype=float) ** 2 / s) ** a
         if self._averaged_sgo():
-            log_prob = _wlr_averaged
-            init = [mean_y, 0.0]
+            init = [float(np.mean(y)), 0.0]
         else:
-            log_prob = _wlr_general
             kappa0 = 0.8
-            log_c0 = (mean_y - 2.0 * math.log(self._rho ** (-kappa0) - 1.0)
-                      - 2.0 * kappa0 * float(x.mean()))
+            log_c0 = (float(np.mean(y)) - 2.0 * math.log(self._rho ** (-kappa0) - 1.0)
+                      - 2.0 * kappa0 * float(np.mean(x)))
             init = [math.log(kappa0 / (1 - kappa0)), log_c0, 0.0]
-        init = torch.tensor(init, dtype=y.dtype, device=device).repeat(n_chains, 1)
-        samples = hmc_sample(log_prob, init, generator, data=data)
+        # one host-to-device copy of the rows
+        y_t, x_t, w_t = torch.as_tensor(np.stack([y, x, w]), device=device)
+        init = torch.tensor(init, dtype=y_t.dtype, device=device).repeat(n_chains, 1)
+        samples = wlr_hmc(init, generator, (y_t, x_t, w_t, self._rho))
         flat = samples.reshape(-1, samples.shape[-1])
         if self._averaged_sgo():
             fit = {"log_c": flat[:, 0], "sigma": torch.exp(flat[:, 1])}
-            kappa = 1.0
+            kappa, log_c = 1.0, float(fit["log_c"].mean())
         else:
             fit = {"kappa": torch.sigmoid(flat[:, 0]), "log_c": flat[:, 1],
                    "sigma": torch.exp(flat[:, 2])}
-            kappa = float(fit["kappa"].mean())
-        log_c = float(fit["log_c"].mean())
+            kappa, log_c = torch.stack([fit["kappa"].mean(), fit["log_c"].mean()]).tolist()
         return fit, kappa, float(np.exp(log_c))
 
     @staticmethod
@@ -1036,7 +970,7 @@ class RAABBVI(FASO):
         skl_hist.append(skl)
         fit, kappa, c = self.weighted_linear_regression(
             np.log(np.asarray(skl_hist)), np.log(np.asarray(lr_hist)),
-            generator=generator, device=generator.device)
+            generator=generator)
         kappa_hist.append(kappa)
         c_hist.append(c)
         terminated = False
@@ -1077,8 +1011,9 @@ class RAABBVI(FASO):
         """Run RAABBVI. ``progress_callback(k, avg_loss)`` fires at every
         inner-FASO segment boundary with ``k`` counted across rounds.
 
-        The weighted regression's HMC draws from its own generator on
-        :data:`HMC_DEVICE`, seeded from ``generator``'s initial seed.
+        The weighted regression's HMC draws from its own generator on the
+        run's device (``init_param``'s), seeded from ``generator``'s
+        initial seed; on a card each regression is one kernel launch.
 
         ``max_time`` (seconds; default the constructor's) budgets the whole
         run: each round gets what is left, and a run that runs out stops
@@ -1104,7 +1039,7 @@ class RAABBVI(FASO):
                                     generator=generator,
                                     progress_callback=progress_callback,
                                     max_time=max_time)
-        hmc_generator = torch.Generator(HMC_DEVICE).manual_seed(
+        hmc_generator = torch.Generator(init_param.device).manual_seed(
             generator.initial_seed())
         # the whole-run clock is read only under a budget, so the stubbed
         # clocks of the tests keep their schedules

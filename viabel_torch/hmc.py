@@ -5,15 +5,31 @@ Fixed-trajectory HMC with dual-averaging step-size adaptation (Hoffman &
 Gelman 2014, §3.2) and two-phase warmup with diagonal mass-matrix
 estimation: Welford statistics over the first warmup half set the metric
 for the second, whose dual averaging restarts. Chains are a batch
-dimension and iterations a Python loop; randomness comes from a
-``torch.Generator`` on the device the positions live on. RAABBVI only
-consumes posterior means, which any correct sampler of the same posterior
-reproduces, so the draws are compared with the JAX sampler statistically.
+dimension. Every random number of a run is drawn before its first
+iteration (:func:`draw_randomness`) from a ``torch.Generator`` on the
+device the positions live on, so a run is a function of the generator's
+state alone, and RAABBVI's kernel (``viabel_torch.ops.wlr_hmc``, the whole
+run in one launch on a card) takes the same numbers as this sampler from
+one state. This function runs the iterations eagerly, as the kernel's
+plain version and for any other target. RAABBVI only consumes posterior means, which
+any correct sampler of the same posterior reproduces, so the draws are
+compared with the JAX sampler statistically.
 """
 
 import torch
 
-__all__ = ["hmc_sample"]
+__all__ = ["hmc_sample", "draw_randomness"]
+
+
+def draw_randomness(generator, n_iters, n_chains, d, dtype, device):
+    """Every random number of an HMC run, in one fixed order: the standard
+    normals of the momenta, ``(n_iters, n_chains, d)``, then the uniforms
+    of the accept tests, ``(n_iters, n_chains)``."""
+    normals = torch.randn((n_iters, n_chains, d), generator=generator, dtype=dtype,
+                          device=device)
+    uniforms = torch.rand((n_iters, n_chains), generator=generator, dtype=dtype,
+                          device=device)
+    return normals, uniforms
 
 
 def _da_init(step_size):
@@ -50,7 +66,9 @@ def hmc_sample(value_and_grad, init_positions, generator, data=None,
         posterior, where an autograd pass costs far more than the
         arithmetic.
     init_positions : tensor, shape (n_chains, d)
-    generator : torch.Generator on the positions' device
+    generator : torch.Generator on the positions' device; the run draws
+        its ``num_warmup + num_samples`` iterations' numbers from it first
+        (:func:`draw_randomness`)
 
     Returns samples of shape ``(n_chains, num_samples, d)``.
     """
@@ -65,14 +83,15 @@ def hmc_sample(value_and_grad, init_positions, generator, data=None,
     wf_mean = torch.zeros((C, d), dtype=dtype, device=device)
     wf_m2 = torch.zeros((C, d), dtype=dtype, device=device)
     wf_n = 0.0
+    normals, uniforms = draw_randomness(generator, num_warmup + num_samples, C, d,
+                                        dtype, device)
     lp, grad = lp_fn(q)
     draws = []
     for i in range(num_warmup + num_samples):
         warming = i < num_warmup
         eps = torch.exp(da["log_eps"] if warming else da["log_eps_bar"])[:, None]
         # momenta ~ N(0, M) with M = diag(1 / inv_mass)
-        p = torch.randn((C, d), generator=generator, dtype=dtype,
-                        device=device) / torch.sqrt(inv_mass)
+        p = normals[i] / torch.sqrt(inv_mass)
         h0 = lp - 0.5 * torch.sum(inv_mass * p**2, dim=1)
         q_new, g_new = q, grad
         half_eps, eps_inv_mass = 0.5 * eps, eps * inv_mass
@@ -84,8 +103,7 @@ def hmc_sample(value_and_grad, init_positions, generator, data=None,
         h1 = lp_new - 0.5 * torch.sum(inv_mass * p**2, dim=1)
         log_accept = torch.clamp(h1 - h0, max=0.0)
         log_accept = torch.where(torch.isnan(log_accept), -torch.inf, log_accept)
-        u = torch.rand((C,), generator=generator, dtype=dtype, device=device)
-        accept = torch.log(u) < log_accept
+        accept = torch.log(uniforms[i]) < log_accept
         q = torch.where(accept[:, None], q_new, q)
         lp = torch.where(accept, lp_new, lp)
         grad = torch.where(accept[:, None], g_new, grad)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-The kernels in ``viabel_torch/csrc/*.cu`` have a plain C interface and are
-compiled by ``nvcc`` into one shared library for Hopper (``sm_90a``) on
-first use, then loaded with ``ctypes``. The library's file name carries a
+The kernels in ``viabel_torch/csrc/*.cu`` have a plain C interface. On
+first use ``nvcc`` compiles each source for Hopper (``sm_90a``) in its own
+process, all started together, links the objects into one shared library
+and loads it with ``ctypes``. The library's file name carries a
 hash of the sources and flags, so an edit rebuilds. Nothing here runs at
 import time: a machine without ``nvcc`` or a GPU imports the package and
 uses the plain PyTorch versions on CPU tensors.
@@ -28,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # (name, element type) for every exported C function; all return cudaError_t
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_P, _I64, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
     "viabel_ring_group_stats_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     "viabel_ring_group_stats_f64": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
@@ -36,10 +37,11 @@ _SIGNATURES = {
     "viabel_stl_transpose_solve_f64": (_P, _P, _P) + (_I64,) * 6 + (_P,),
     "viabel_tri_solve_f32": (_P, _P, _P) + (_I64,) * 6 + (ctypes.c_int, _P),
     "viabel_tri_solve_f64": (_P, _P, _P) + (_I64,) * 6 + (ctypes.c_int, _P),
+    "viabel_wlr_hmc_f64": (_P,) * 7 + (_I64,) * 6 + (_F64,) * 4 + (_P,),
 }
 
 _LAUNCHES = {"ring_group_stats": 0, "stl_transpose_solve": 0,
-             "vmem_solve_triangular": 0}
+             "vmem_solve_triangular": 0, "wlr_hmc": 0}
 _state = {"lib": None, "info": None}
 
 
@@ -85,16 +87,32 @@ def _build(out):
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in SOURCES]
+    cmds = [[nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(SOURCES, objects)]
+    link = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)]
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    log = "".join(outputs)
+    try:
+        for cmd, proc, output in zip(cmds, procs, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{output}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return {"built": True, "seconds": seconds, "nvcc": nvcc,
-            "log": proc.stdout + proc.stderr}
+            "log": log + proc.stdout + proc.stderr}
 
 
 def load_library():

@@ -16,9 +16,9 @@ spent its budget rides along at ``learning_rate = 0``. Every decision
 uses only the restart's own quantities.
 
 Restart ``b`` draws from one generator through all its rounds, and its
-regression's HMC from a generator on :data:`viabel_torch.faso.HMC_DEVICE`
-seeded from that generator's initial seed, exactly as a single
-``RAABBVI`` run does; at ``B = 1`` the restart's generator is the
+regression's HMC from a generator on the restart's device seeded from
+that generator's initial seed, exactly as a single ``RAABBVI`` run does
+(on a card, one ``wlr_hmc`` kernel launch a regression); at ``B = 1`` the restart's generator is the
 caller's, so the run is the port's ``RAABBVI.optimize`` on it.
 
 ``schedule="async"`` removes the round barrier: every restart advances
@@ -29,7 +29,7 @@ starts its next round at once, while the others' rounds go on
 
 With ``mesh=`` the restarts split over the mesh's restart axis as in
 :func:`multistart_faso`: each rank steps its own restarts and runs their
-round regressions (the host HMC), the regressions' outcomes and the
+round regressions (their HMC), the regressions' outcomes and the
 per-restart statistics are all-gathered, and every rank keeps the whole
 outer bookkeeping, so the step count, the budget and the end agree.
 """
@@ -39,7 +39,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..faso import (HMC_DEVICE, RAABBVI, _backoff_adjust, _candidate_windows, _clamp_stat,
+from ..faso import (RAABBVI, _backoff_adjust, _candidate_windows, _clamp_stat,
                     _clone_state, _detection_geometry, _host_handle, _now, _pad_events,
                     _pad_tail, _read_host, _recheck_scale, _set_generator_state,
                     _to_host_async)
@@ -138,7 +138,7 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
     split = dict(mesh=mesh, restart_axis=restart_axis)
     if schedule == "async":
         generators = restart_generators(generator, B, init_params.device)
-        hmc_generators = [torch.Generator(HMC_DEVICE).manual_seed(g.initial_seed())
+        hmc_generators = [torch.Generator(g.device).manual_seed(g.initial_seed())
                           for g in generators]
         escalation = dict(mc_escalation=mc_escalation, mc_max_samples=mc_max_samples,
                           mc_patience=mc_patience, mc_plateau_rtol=mc_plateau_rtol)
@@ -193,7 +193,7 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
     mcse = np.broadcast_to(np.asarray(mcse_threshold, dtype=float), (B,)).copy()
     # a resumed run sets each generator's saved state below
     generators = restart_generators(generator, B, init_params.device)
-    hmc_generators = [torch.Generator(HMC_DEVICE).manual_seed(g.initial_seed())
+    hmc_generators = [torch.Generator(g.device).manual_seed(g.initial_seed())
                       for g in generators]
 
     mc_events_outer = []
