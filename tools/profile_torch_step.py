@@ -1,4 +1,4 @@
-"""Profile viabel_torch's flagship step and FASO checks on one CUDA card.
+"""Time viabel_torch's flagship step and FASO checks on one CUDA card.
 
     python tools/profile_torch_step.py
 
@@ -11,12 +11,12 @@ without resampling, it prints:
 - ``[step]``: host milliseconds per optimizer step (ring write included),
   over 500 steps after 100 warm-up steps;
 - ``[elbo_grad]``: one value-and-gradient evaluation, median of 50
-  CUDA-event-timed calls, and the same per 1k draws;
-- ``[profile]``: 20 steps under ``torch.profiler``: their wall time, the
-  device time per step (kernels and copies on the card, each counted
-  once), and the device's busy share, that device time over the
-  unprofiled step time of ``[step]`` (the profiler itself slows the
-  host); then the profiler's table sorted by device time.
+  CUDA-event-timed calls, and the same per 1k draws.
+
+The step's device time, busy share and phases come from the benchmark's
+traced run instead (``python3 perfbench/run.py --workload <cell> --seed
+<n> --seconds 51 --trace 1``), on one window, with the program's own
+spans.
 
 For DIS it also times the 50-step bisection on ``eps`` alone
 (``[dis_bisection]``, CUDA events). Then it times the FASO checks on a
@@ -32,8 +32,6 @@ import sys
 import time
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -68,7 +66,7 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def profile_estimator(tag, objective, approx, generator, draws):
+def time_estimator(tag, objective, approx, generator, draws):
     sgo = vt.RMSProp(LR)
     state = {"param": approx.init_param()}
     state["opt"] = sgo.init_state(state["param"])
@@ -96,24 +94,8 @@ def profile_estimator(tag, objective, approx, generator, draws):
     print(f"[elbo_grad] {tag} ms={ms:.4f} ms_per_1k_draws={ms / draws * 1000:.4f}",
           flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        for i in range(20):
-            step(i)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-    averages = prof.key_averages()
-    # operator rows repeat their kernels' time: sum the device's own rows
-    device_ms = sum(k.self_device_time_total for k in averages
-                    if k.device_type == DeviceType.CUDA) / 1e3 / 20
-    print(f"[profile] {tag} steps=20 wall_ms={wall_ms:.3f} "
-          f"device_ms_per_step={device_ms:.4f} "
-          f"busy_share={device_ms / (per_step * 1e3):.3f}", flush=True)
-    print(averages.table(sort_by="self_device_time_total", row_limit=14,
-                         max_name_column_width=60), flush=True)
 
-
-def profile_bisection(dis, approx, model, generator):
+def time_bisection(dis, approx, model, generator):
     """The 50-step bisection on eps alone, on one refresh's draws."""
     param = approx.init_param()
     with torch.no_grad():
@@ -124,7 +106,7 @@ def profile_bisection(dis, approx, model, generator):
     print(f"[dis_bisection] S={DIS_S} ms={ms:.4f}", flush=True)
 
 
-def profile_checks(generator):
+def time_checks(generator):
     D = DIM + DIM * DIM
     ring = torch.randn((RING_ROWS, D), device="cuda", generator=generator)
     k = 2 * RING_ROWS  # a wrapped ring
@@ -156,16 +138,16 @@ def main():
     approx = vt.FullRankGaussian(DIM, device="cuda", dtype=torch.float32)
     generator = torch.Generator("cuda").manual_seed(0)
     for stl in (True, False):
-        profile_estimator(f"stl={stl}", vt.ExclusiveKL(approx, model, S, use_path_deriv=stl),
+        time_estimator(f"stl={stl}", vt.ExclusiveKL(approx, model, S, use_path_deriv=stl),
                           approx, generator, S)
     prior = vt.MFGaussian(DIM, device="cuda", dtype=torch.float32)
     for resampling in (True, False):
         dis = vt.DISInclusiveKL(approx, model, DIS_S, ess_target=DIS_ESS, temper_prior=prior,
                                 temper_prior_params=torch.zeros(2 * DIM, device="cuda"),
                                 use_resampling=resampling)
-        profile_estimator(f"dis_resampling={resampling}", dis, approx, generator, DIS_S)
-    profile_bisection(dis, approx, model, generator)
-    profile_checks(generator)
+        time_estimator(f"dis_resampling={resampling}", dis, approx, generator, DIS_S)
+    time_bisection(dis, approx, model, generator)
+    time_checks(generator)
     print(f"[mem] max_memory_allocated_bytes={torch.cuda.max_memory_allocated()}")
     return 0
 

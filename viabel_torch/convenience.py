@@ -27,6 +27,7 @@ from .models import Model
 from .objectives import ExclusiveKL
 from .optimizers import RMSProp, default_generator
 from .psis import psislw
+from .tracing import span
 
 __all__ = ["bbvi", "vi_diagnostics", "elbo_estimates", "select_best_restart",
            "psis_correction", "samples_and_log_weights", "pilot_standardize"]
@@ -152,108 +153,109 @@ def bbvi(dimension, *, n_iters=10000, num_mc_samples=10, log_density=None,
     folded iterate at the same draws. Only the model term alone, ``E_q
     log p``, is offset by ``sum(log p_scale)`` between the two spaces.
     """
-    RMS_kwargs = dict(RMS_kwargs or {})
-    FASO_kwargs = dict(FASO_kwargs or {})
-    RAABBVI_kwargs = dict(RAABBVI_kwargs or {})
+    with span("viabel.bbvi"):
+        RMS_kwargs = dict(RMS_kwargs or {})
+        FASO_kwargs = dict(FASO_kwargs or {})
+        RAABBVI_kwargs = dict(RAABBVI_kwargs or {})
 
-    if objective is not None:
-        if fit is not None or log_density is not None or approx is not None:
-            raise ValueError(
-                "an objective already carries its model and family; drop the fit/"
-                "log_density/approx arguments")
-        approx = objective.approx
-        model = objective.model
-    else:
-        if log_density is None:
-            if fit is None:
+        if objective is not None:
+            if fit is not None or log_density is not None or approx is not None:
                 raise ValueError(
-                    "nothing to optimize: pass a log_density (or a prebuilt objective)")
-            raise NotImplementedError(
-                "PyStan fits are not supported in viabel_torch; provide a torch "
-                "log_density (see viabel_torch.models.zoo)")
-        elif fit is not None:
-            raise ValueError("pass either log_density or fit, not both")
-        model = log_density if isinstance(log_density, Model) else Model(log_density)
-        if approx is None:
-            approx = MFGaussian(dimension, device=device, dtype=dtype)
-        objective = ExclusiveKL(approx, model, num_mc_samples)
-    if generator is None:
-        generator = default_generator(approx.device)
-    standardization = orig_model = None
-    if standardize:
+                    "an objective already carries its model and family; drop the fit/"
+                    "log_density/approx arguments")
+            approx = objective.approx
+            model = objective.model
+        else:
+            if log_density is None:
+                if fit is None:
+                    raise ValueError(
+                        "nothing to optimize: pass a log_density (or a prebuilt objective)")
+                raise NotImplementedError(
+                    "PyStan fits are not supported in viabel_torch; provide a torch "
+                    "log_density (see viabel_torch.models.zoo)")
+            elif fit is not None:
+                raise ValueError("pass either log_density or fit, not both")
+            model = log_density if isinstance(log_density, Model) else Model(log_density)
+            if approx is None:
+                approx = MFGaussian(dimension, device=device, dtype=dtype)
+            objective = ExclusiveKL(approx, model, num_mc_samples)
+        if generator is None:
+            generator = default_generator(approx.device)
+        standardization = orig_model = None
+        if standardize:
+            try:
+                approx.fold_affine(approx.init_param(), 0.0, 1.0)
+            except NotImplementedError as exc:
+                raise ValueError(
+                    "standardize=True needs a family with a closed-form affine "
+                    f"pushforward; {type(approx).__name__} has none — run "
+                    "pilot_standardize yourself and map draws back through "
+                    "spec.constrain") from exc
+            std_model, spec, pilot_results = pilot_standardize(
+                approx.dim, model, generator=generator, device=approx.device,
+                dtype=approx.dtype, **dict(pilot_kwargs or {}))
+            p_mu, p_log_sigma = torch.split(pilot_results["opt_param"], approx.dim)
+            p_scale = torch.exp(p_log_sigma)
+            standardization = dict(affine=(p_mu, p_scale), spec=spec,
+                                   pilot_results=pilot_results)
+            orig_model, model = model, std_model
+            objective.model = std_model
+            # explicit inits arrive in the user's coordinates; the inverse
+            # affine is itself an affine
+            inv = (-p_mu / p_scale, 1.0 / p_scale)
+            if init_var_param is not None:
+                init_var_param = approx.fold_affine(init_var_param, *inv)
+            if init_var_params is not None:
+                init_var_params = torch.stack([
+                    approx.fold_affine(vp, *inv) for vp in torch.as_tensor(
+                        init_var_params, dtype=approx.dtype, device=approx.device)])
+        elif pilot_kwargs is not None:
+            raise ValueError("pilot_kwargs needs standardize=True")
         try:
-            approx.fold_affine(approx.init_param(), 0.0, 1.0)
-        except NotImplementedError as exc:
-            raise ValueError(
-                "standardize=True needs a family with a closed-form affine "
-                f"pushforward; {type(approx).__name__} has none — run "
-                "pilot_standardize yourself and map draws back through "
-                "spec.constrain") from exc
-        std_model, spec, pilot_results = pilot_standardize(
-            approx.dim, model, generator=generator, device=approx.device,
-            dtype=approx.dtype, **dict(pilot_kwargs or {}))
-        p_mu, p_log_sigma = torch.split(pilot_results["opt_param"], approx.dim)
-        p_scale = torch.exp(p_log_sigma)
-        standardization = dict(affine=(p_mu, p_scale), spec=spec,
-                               pilot_results=pilot_results)
-        orig_model, model = model, std_model
-        objective.model = std_model
-        # explicit inits arrive in the user's coordinates; the inverse
-        # affine is itself an affine
-        inv = (-p_mu / p_scale, 1.0 / p_scale)
-        if init_var_param is not None:
-            init_var_param = approx.fold_affine(init_var_param, *inv)
-        if init_var_params is not None:
-            init_var_params = torch.stack([
-                approx.fold_affine(vp, *inv) for vp in torch.as_tensor(
-                    init_var_params, dtype=approx.dtype, device=approx.device)])
-    elif pilot_kwargs is not None:
-        raise ValueError("pilot_kwargs needs standardize=True")
-    try:
-        if init_method is not None:
-            if init_method != "pathfinder":
-                raise ValueError(f"unknown init_method {init_method!r}; the one "
-                                 "built-in data-driven initializer is 'pathfinder'")
-            if init_var_param is not None or init_var_params is not None:
-                raise ValueError("init_method='pathfinder' computes the init; "
-                                 "drop init_var_param(s)")
-            from .pathfinder import pathfinder_init
-            pf_kwargs = dict(pathfinder_kwargs or {})
-            if num_restarts is not None:
-                # one path a restart: distinct data-driven basins
-                pf_kwargs.setdefault("n_paths", int(num_restarts))
-                init_var_params = pathfinder_init(approx, model, generator,
-                                                  per_path=True, **pf_kwargs)
+            if init_method is not None:
+                if init_method != "pathfinder":
+                    raise ValueError(f"unknown init_method {init_method!r}; the one "
+                                     "built-in data-driven initializer is 'pathfinder'")
+                if init_var_param is not None or init_var_params is not None:
+                    raise ValueError("init_method='pathfinder' computes the init; "
+                                     "drop init_var_param(s)")
+                from .pathfinder import pathfinder_init
+                pf_kwargs = dict(pathfinder_kwargs or {})
+                if num_restarts is not None:
+                    # one path a restart: distinct data-driven basins
+                    pf_kwargs.setdefault("n_paths", int(num_restarts))
+                    init_var_params = pathfinder_init(approx, model, generator,
+                                                      per_path=True, **pf_kwargs)
+                else:
+                    init_var_param = pathfinder_init(approx, model, generator, **pf_kwargs)
+            elif pathfinder_kwargs is not None:
+                raise ValueError("pathfinder_kwargs needs init_method='pathfinder'")
+            if num_restarts is not None or init_var_params is not None:
+                opt_results = _bbvi_multistart(
+                    objective, approx, n_iters, num_restarts, init_var_params,
+                    init_var_param, init_jitter, learning_rate, generator, adaptive,
+                    fixed_lr, progress_callback, multistart_kwargs, RMS_kwargs,
+                    FASO_kwargs, RAABBVI_kwargs)
             else:
-                init_var_param = pathfinder_init(approx, model, generator, **pf_kwargs)
-        elif pathfinder_kwargs is not None:
-            raise ValueError("pathfinder_kwargs needs init_method='pathfinder'")
-        if num_restarts is not None or init_var_params is not None:
-            opt_results = _bbvi_multistart(
-                objective, approx, n_iters, num_restarts, init_var_params,
-                init_var_param, init_jitter, learning_rate, generator, adaptive,
-                fixed_lr, progress_callback, multistart_kwargs, RMS_kwargs,
-                FASO_kwargs, RAABBVI_kwargs)
-        else:
-            opt_results = _bbvi_single(objective, approx, n_iters, init_var_param,
-                                       init_jitter, learning_rate, generator, adaptive,
-                                       fixed_lr, progress_callback, RMS_kwargs,
-                                       FASO_kwargs, RAABBVI_kwargs)
-    finally:
+                opt_results = _bbvi_single(objective, approx, n_iters, init_var_param,
+                                           init_jitter, learning_rate, generator, adaptive,
+                                           fixed_lr, progress_callback, RMS_kwargs,
+                                           FASO_kwargs, RAABBVI_kwargs)
+        finally:
+            if standardization is not None:
+                # the results' objective diagnoses the user's target (a
+                # prebuilt objective is restored on an error as well)
+                objective.model = orig_model
         if standardization is not None:
-            # the results' objective diagnoses the user's target (a
-            # prebuilt objective is restored on an error as well)
-            objective.model = orig_model
-    if standardization is not None:
-        if "opt_params" in opt_results:
-            opt_results["opt_params"] = torch.stack([
-                approx.fold_affine(vp, p_mu, p_scale) for vp in opt_results["opt_params"]])
-            opt_results["opt_param"] = opt_results["opt_params"][opt_results["best_restart"]]
-        else:
-            opt_results["opt_param"] = approx.fold_affine(opt_results["opt_param"],
-                                                          p_mu, p_scale)
-        opt_results["standardization"] = standardization
-    return opt_results
+            if "opt_params" in opt_results:
+                opt_results["opt_params"] = torch.stack([
+                    approx.fold_affine(vp, p_mu, p_scale) for vp in opt_results["opt_params"]])
+                opt_results["opt_param"] = opt_results["opt_params"][opt_results["best_restart"]]
+            else:
+                opt_results["opt_param"] = approx.fold_affine(opt_results["opt_param"],
+                                                              p_mu, p_scale)
+            opt_results["standardization"] = standardization
+        return opt_results
 
 
 def _bbvi_single(objective, approx, n_iters, init_var_param, init_jitter,
@@ -532,76 +534,79 @@ def vi_diagnostics(var_param, *, objective=None, model=None, approx=None,
 
 def _vi_diagnostics(var_param, model, approx, n_samples, generator,
                     ksd_samples=0, ksd_null=19, ksd_pairs=None):
-    var_param = var_param.detach()  # nothing here differentiates the parameters
-    samples, smoothed_log_weights, khat = psis_correction(
-        var_param, model, approx, n_samples, generator)
-    results = dict(samples=samples, smoothed_log_weights=smoothed_log_weights,
-                   khat=khat)
-    print("estimated Pareto shape: khat = {:.2f}".format(float(khat)))
-    if not math.isfinite(float(khat)) or float(khat) > 0.7:
-        print("WARNING: khat > 0.7 — the importance weights are too heavy-tailed")
-        print("WARNING: skipping the weight-based diagnostics")
-        n_ksd = min(int(ksd_samples), samples.shape[1])
-        if n_ksd > 1:
-            if n_ksd > 512:
-                # a multiple of the row block, so that large sample counts
-                # always take the blocked path (no (n, n) Gram matrix)
-                n_ksd -= n_ksd % 512
-                block = 512
-            else:
-                block = None
-            # samples come back transposed (d, n) from psis_correction
-            x = samples.T[:n_ksd]
+    with span("viabel.vi_diagnostics"):
+        var_param = var_param.detach()  # nothing here differentiates the parameters
+        samples, smoothed_log_weights, khat = psis_correction(
+            var_param, model, approx, n_samples, generator)
+        results = dict(samples=samples, smoothed_log_weights=smoothed_log_weights,
+                       khat=khat)
+        print("estimated Pareto shape: khat = {:.2f}".format(float(khat)))
+        if not math.isfinite(float(khat)) or float(khat) > 0.7:
+            print("WARNING: khat > 0.7 — the importance weights are too heavy-tailed")
+            print("WARNING: skipping the weight-based diagnostics")
+            n_ksd = min(int(ksd_samples), samples.shape[1])
+            if n_ksd > 1:
+                if n_ksd > 512:
+                    # a multiple of the row block, so that large sample counts
+                    # always take the blocked path (no (n, n) Gram matrix)
+                    n_ksd -= n_ksd % 512
+                    block = 512
+                else:
+                    block = None
+                # samples come back transposed (d, n) from psis_correction
+                x = samples.T[:n_ksd]
 
-            def null_score_fn(xx):
-                with torch.enable_grad():
-                    xx = xx.detach().requires_grad_(True)
-                    return torch.autograd.grad(
-                        torch.sum(approx.log_density(var_param, xx)), xx)[0]
+                def null_score_fn(xx):
+                    with torch.enable_grad():
+                        xx = xx.detach().requires_grad_(True)
+                        return torch.autograd.grad(
+                            torch.sum(approx.log_density(var_param, xx)), xx)[0]
 
-            test = ksd_test(
-                x, model=model,
-                null_sampler=lambda g: approx.sample(var_param, n_ksd, g),
-                null_score_fn=null_score_fn, generator=generator,
-                n_null=ksd_null, block_size=block, subsample_pairs=ksd_pairs)
-            results["ksd"] = test["ksd"]
-            results["ksd_p_value"] = test["p_value"]
-            results["ksd_reject"] = test["reject"]
-            results["ksd_valid"] = test["valid"]
-            print("kernelized Stein discrepancy (IMQ, n = {}): ksd = {:.3g}, "
-                  "p = {:.3g} against the q = p null ({} replicates)"
-                  .format(n_ksd, float(test["ksd"]), test["p_value"], ksd_null))
-            if not test["valid"]:
-                print("WARNING: the KSD statistic is non-finite (degenerate "
-                      "draws or score overflow) — the test is invalid, not "
-                      "a rejection")
-            elif test["reject"]:
-                print("WARNING: the KSD test rejects q = p at the {:.0%} "
-                      "level — the approximation is detectably off even "
-                      "before importance weighting".format(1.0 / (ksd_null + 1)))
-            else:
-                print("the KSD test cannot distinguish the approximation "
-                      "from the target at this sample size (p > {:.2f})"
-                      .format(1.0 / (ksd_null + 1)))
+                with span("viabel.diag.ksd"):
+                    test = ksd_test(
+                        x, model=model,
+                        null_sampler=lambda g: approx.sample(var_param, n_ksd, g),
+                        null_score_fn=null_score_fn, generator=generator,
+                        n_null=ksd_null, block_size=block, subsample_pairs=ksd_pairs)
+                results["ksd"] = test["ksd"]
+                results["ksd_p_value"] = test["p_value"]
+                results["ksd_reject"] = test["reject"]
+                results["ksd_valid"] = test["valid"]
+                print("kernelized Stein discrepancy (IMQ, n = {}): ksd = {:.3g}, "
+                      "p = {:.3g} against the q = p null ({} replicates)"
+                      .format(n_ksd, float(test["ksd"]), test["p_value"], ksd_null))
+                if not test["valid"]:
+                    print("WARNING: the KSD statistic is non-finite (degenerate "
+                          "draws or score overflow) — the test is invalid, not "
+                          "a rejection")
+                elif test["reject"]:
+                    print("WARNING: the KSD test rejects q = p at the {:.0%} "
+                          "level — the approximation is detectably off even "
+                          "before importance weighting".format(1.0 / (ksd_null + 1)))
+                else:
+                    print("the KSD test cannot distinguish the approximation "
+                          "from the target at this sample size (p > {:.2f})"
+                          .format(1.0 / (ksd_null + 1)))
+            return results
+        print()
+        if approx.supports_pth_moment(2) and approx.supports_pth_moment(4):
+            def moment_bound_fn(p):
+                return approx.pth_moment(var_param, p)
+        else:
+            moment_bound_fn = None
+        with span("viabel.diag.moments"):
+            _, q_var = approx.mean_and_cov(var_param)
+        results.update(all_diagnostics(smoothed_log_weights, samples=samples.T,
+                                       moment_bound_fn=moment_bound_fn, q_var=q_var))
+        print("estimated 2-divergence: d2 = {:.2g}".format(float(results["d2"])))
+        if float(results["d2"]) > 4.6:
+            print("WARNING: d2 > 4.6 — the approximation is unusable as-is")
+        elif float(results["d2"]) > 0.1:
+            print("WARNING: 0.1 < d2 < 4.6 — moderately inaccurate; apply the "
+                  "PSIS-corrected weights to reduce the error.")
+        else:
+            print("\nall diagnostics pass")
         return results
-    print()
-    if approx.supports_pth_moment(2) and approx.supports_pth_moment(4):
-        def moment_bound_fn(p):
-            return approx.pth_moment(var_param, p)
-    else:
-        moment_bound_fn = None
-    _, q_var = approx.mean_and_cov(var_param)
-    results.update(all_diagnostics(smoothed_log_weights, samples=samples.T,
-                                   moment_bound_fn=moment_bound_fn, q_var=q_var))
-    print("estimated 2-divergence: d2 = {:.2g}".format(float(results["d2"])))
-    if float(results["d2"]) > 4.6:
-        print("WARNING: d2 > 4.6 — the approximation is unusable as-is")
-    elif float(results["d2"]) > 0.1:
-        print("WARNING: 0.1 < d2 < 4.6 — moderately inaccurate; apply the "
-              "PSIS-corrected weights to reduce the error.")
-    else:
-        print("\nall diagnostics pass")
-    return results
 
 
 def psis_correction(var_param, model, approx, n_samples, generator):
@@ -610,12 +615,14 @@ def psis_correction(var_param, model, approx, n_samples, generator):
     the reference returns them."""
     samples, log_weights = samples_and_log_weights(var_param, model, approx,
                                                    n_samples, generator)
-    smoothed_log_weights, khat = psislw(log_weights)
+    with span("viabel.diag.psis"):
+        smoothed_log_weights, khat = psislw(log_weights)
     return samples.T, smoothed_log_weights, khat
 
 
 def samples_and_log_weights(var_param, model, approx, n_samples, generator):
     """Draw q samples and compute ``log p - log q``."""
-    samples = approx.sample(var_param, int(n_samples), generator)
-    log_weights = model(samples) - approx.log_density(var_param, samples)
+    with span("viabel.diag.log_weights"):
+        samples = approx.sample(var_param, int(n_samples), generator)
+        log_weights = model(samples) - approx.log_density(var_param, samples)
     return samples, log_weights

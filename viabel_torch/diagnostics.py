@@ -12,6 +12,8 @@ from warnings import warn
 
 import torch
 
+from .tracing import span
+
 __all__ = ["all_diagnostics", "error_bounds", "wasserstein_bounds",
            "divergence_bound", "ksd", "ksd_test"]
 
@@ -36,15 +38,16 @@ def all_diagnostics(log_weights, *, samples=None, moment_bound_fn=None,
     ``x_i ~ q`` (``p`` may be unnormalized). Returns a dict with
     ``mean_error``, ``std_error``, ``cov_error``, ``W1``, ``W2``, ``d2``,
     ``log_norm_bound``."""
-    d2, log_norm_bound = divergence_bound(
-        log_weights, log_norm_bound=log_norm_bound, return_log_norm_bound=True)
-    results = wasserstein_bounds(d2, samples=samples, moment_bound_fn=moment_bound_fn)
-    if q_var is None and samples is not None:
-        centered = _centered(samples)
-        q_var = centered.T @ centered / (centered.shape[0] - 1)
-    results.update(error_bounds(q_var=q_var, p_var=p_var, **results))
-    results["d2"] = d2
-    results["log_norm_bound"] = log_norm_bound
+    with span("viabel.diag.bounds"):
+        d2, log_norm_bound = divergence_bound(
+            log_weights, log_norm_bound=log_norm_bound, return_log_norm_bound=True)
+        results = wasserstein_bounds(d2, samples=samples, moment_bound_fn=moment_bound_fn)
+        if q_var is None and samples is not None:
+            centered = _centered(samples)
+            q_var = centered.T @ centered / (centered.shape[0] - 1)
+        results.update(error_bounds(q_var=q_var, p_var=p_var, **results))
+        results["d2"] = d2
+        results["log_norm_bound"] = log_norm_bound
     return results
 
 
@@ -54,7 +57,8 @@ def _compute_norm_if_needed(var):
     var = _tensor(var)
     if var.dim() == 2:
         # spectral norm for matrix (co)variances
-        return torch.linalg.matrix_norm(var, ord=2)
+        with span("viabel.diag.cov_norm"):
+            return torch.linalg.matrix_norm(var, ord=2)
     return var
 
 

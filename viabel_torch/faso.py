@@ -57,6 +57,7 @@ from .ops.wlr import wlr_hmc
 from .optimizers import (AveragedAdam, AveragedRMSProp, Optimizer, RMSProp,
                          StochasticGradientOptimizer, _obj_check_state, _obj_init_state,
                          default_generator)
+from .tracing import span
 from .utils import Timer, check_device
 
 __all__ = ["FASO", "RAABBVI", "merge_resume_states"]
@@ -414,9 +415,10 @@ class FASO(Optimizer):
         R = ring.shape[0]
         values, grads, dirs = [], [], []
         for _ in range(steps):
-            var_param, opt_state, obj_state, value, direction, grad = self._sgo.step(
-                objective, var_param, opt_state, obj_state, generator, lr)
-            ring[t % R] = var_param[cols]
+            with span("viabel.step"):
+                var_param, opt_state, obj_state, value, direction, grad = self._sgo.step(
+                    objective, var_param, opt_state, obj_state, generator, lr)
+                ring[t % R] = var_param[cols]
             t += 1
             values.append(value)
             if diagnostics:
@@ -605,46 +607,47 @@ class FASO(Optimizer):
         def process_check(ck):
             nonlocal k_Rhat, k_conv, W_check, last_best_W, iterate_average
             nonlocal check_interval, next_check_at, interval_adjusted_at
-            ck_k = int(ck["k"])
-            r_hats = _read_host(ck["r_hats"])
-            best = int(np.argmin(r_hats))
-            best_W = int(ck["windows"][best])
-            last_best_W = best_W
-            if self._rhat_backoff is not None and ck_k > interval_adjusted_at:
-                check_interval, pull = _backoff_adjust(
-                    r_hats[best], check_interval, max_interval,
-                    self._rhat_backoff, self._rhat_threshold, rhat_allowed)
-                if pull:
-                    next_check_at = 0
-                interval_adjusted_at = k
-            # max mode: r_hats are max-R-hat values, gated by threshold;
-            # quantile mode: above-threshold coordinate counts
-            passed = bool(r_hats[best] <= (self._rhat_threshold
-                                           if rhat_allowed is None
-                                           else rhat_allowed))
-            history["rhat_verdicts"].append(
-                (ck_k, best_W, float(r_hats[best]), passed))
-            if diagnostics or passed:
-                # the average covers [ck.k - best_W, k): what a synchronous
-                # check at k would produce after back-dating
-                w_eff = min(best_W + (k - ck_k), R, k)
-                iterate_average = window_mean(w_eff)
-            if diagnostics:
-                history["iterate_average_k_history"].append(ck_k)
-                history["iterate_average_history"].append(iterate_average)
-            if passed:
-                k_Rhat = ck_k
-                k_conv = ck_k - best_W
-                W_check = best_W  # immediately check MCSE
-            elif (mc_escalation is not None and ck_k > mc_escalated_at
-                    and int(objective.num_mc_samples) < mc_max):
-                # gradient-SNR escalation: the gate is failing and the best
-                # statistic has stopped improving (verdicts dispatched
-                # before the last escalation may pass but never trigger)
-                mc_plateau.append(_clamp_stat(r_hats[best]))
-                if _plateaued(mc_plateau):
-                    escalate(mc_plateau[-1])
-            return passed
+            with span("viabel.faso.rhat_readback"):
+                ck_k = int(ck["k"])
+                r_hats = _read_host(ck["r_hats"])
+                best = int(np.argmin(r_hats))
+                best_W = int(ck["windows"][best])
+                last_best_W = best_W
+                if self._rhat_backoff is not None and ck_k > interval_adjusted_at:
+                    check_interval, pull = _backoff_adjust(
+                        r_hats[best], check_interval, max_interval,
+                        self._rhat_backoff, self._rhat_threshold, rhat_allowed)
+                    if pull:
+                        next_check_at = 0
+                    interval_adjusted_at = k
+                # max mode: r_hats are max-R-hat values, gated by threshold;
+                # quantile mode: above-threshold coordinate counts
+                passed = bool(r_hats[best] <= (self._rhat_threshold
+                                               if rhat_allowed is None
+                                               else rhat_allowed))
+                history["rhat_verdicts"].append(
+                    (ck_k, best_W, float(r_hats[best]), passed))
+                if diagnostics or passed:
+                    # the average covers [ck.k - best_W, k): what a synchronous
+                    # check at k would produce after back-dating
+                    w_eff = min(best_W + (k - ck_k), R, k)
+                    iterate_average = window_mean(w_eff)
+                if diagnostics:
+                    history["iterate_average_k_history"].append(ck_k)
+                    history["iterate_average_history"].append(iterate_average)
+                if passed:
+                    k_Rhat = ck_k
+                    k_conv = ck_k - best_W
+                    W_check = best_W  # immediately check MCSE
+                elif (mc_escalation is not None and ck_k > mc_escalated_at
+                        and int(objective.num_mc_samples) < mc_max):
+                    # gradient-SNR escalation: the gate is failing and the best
+                    # statistic has stopped improving (verdicts dispatched
+                    # before the last escalation may pass but never trigger)
+                    mc_plateau.append(_clamp_stat(r_hats[best]))
+                    if _plateaued(mc_plateau):
+                        escalate(mc_plateau[-1])
+                return passed
 
         def _plateaued(stats):
             if len(stats) < self._mc_patience:
@@ -655,32 +658,33 @@ class FASO(Optimizer):
         def escalate(stat):
             nonlocal mc_escalated_at, check_interval, obj_state
             nonlocal next_check_at, interval_adjusted_at, W_check
-            new_S = min(int(math.ceil(objective.num_mc_samples
-                                      * mc_escalation)), mc_max)
-            objective.num_mc_samples = new_S
-            # the S in use: a sharded objective rounds a rung up to a
-            # multiple of its axis size
-            new_S = int(objective.num_mc_samples)
-            if mc_stateful:
-                # re-derive the threaded estimator state at the new count
-                resize = getattr(objective, "resize_obj_state", None)
-                obj_state = (resize(obj_state, var_param) if resize is not None
-                             else _obj_init_state(objective, var_param))
-            mc_escalated_at = k
-            mc_events.append((k, new_S))
-            mc_plateau.clear()
-            mc_plateau_mcse.clear()
-            # watch the new noise regime at full cadence
-            check_interval = 1
-            next_check_at = 0
-            interval_adjusted_at = k
-            if k_conv is not None:
-                # the MCSE recheck schedule was calibrated to the old noise
-                # regime: recheck one W_min after the escalation instead
-                W_check = (k - k_conv) + self._W_min
-            print("MC escalation: convergence gate stalled at {:.3g}; "
-                  "num_mc_samples -> {} at iteration {}".format(
-                      float(stat), new_S, k))
+            with span("viabel.faso.escalate"):
+                new_S = min(int(math.ceil(objective.num_mc_samples
+                                          * mc_escalation)), mc_max)
+                objective.num_mc_samples = new_S
+                # the S in use: a sharded objective rounds a rung up to a
+                # multiple of its axis size
+                new_S = int(objective.num_mc_samples)
+                if mc_stateful:
+                    # re-derive the threaded estimator state at the new count
+                    resize = getattr(objective, "resize_obj_state", None)
+                    obj_state = (resize(obj_state, var_param) if resize is not None
+                                 else _obj_init_state(objective, var_param))
+                mc_escalated_at = k
+                mc_events.append((k, new_S))
+                mc_plateau.clear()
+                mc_plateau_mcse.clear()
+                # watch the new noise regime at full cadence
+                check_interval = 1
+                next_check_at = 0
+                interval_adjusted_at = k
+                if k_conv is not None:
+                    # the MCSE recheck schedule was calibrated to the old noise
+                    # regime: recheck one W_min after the escalation instead
+                    W_check = (k - k_conv) + self._W_min
+                print("MC escalation: convergence gate stalled at {:.3g}; "
+                      "num_mc_samples -> {} at iteration {}".format(
+                          float(stat), new_S, k))
 
         while k < n_iters:
             # the wall-clock budget is enforced at segment boundaries, so a
@@ -694,9 +698,10 @@ class FASO(Optimizer):
             # segments stay aligned to the k_check grid (a resumed run's
             # first segment may be shorter to realign)
             steps = min(self._k_check - (k % self._k_check), n_iters - k)
-            var_param, opt_state, obj_state, t, outs = self._run_segment(
-                objective, var_param, opt_state, obj_state, generator, ring, t,
-                lr, steps, diagnostics, cols)
+            with span("viabel.faso.segment"):
+                var_param, opt_state, obj_state, t, outs = self._run_segment(
+                    objective, var_param, opt_state, obj_state, generator, ring, t,
+                    lr, steps, diagnostics, cols)
             _obj_check_state(objective, obj_state)
             k += steps
             history["value_history"].append(outs[0])
@@ -714,13 +719,14 @@ class FASO(Optimizer):
                 if W_upper > self._W_min and W_upper >= 2 * G:
                     next_check_at = k + self._k_check * check_interval
                     windows = _candidate_windows(self._W_min, W_upper, G)
-                    r_hats = ring_rhats(windows)
-                    if shard is not None:
-                        # on the device, before the pipelined read-back
-                        r_hats = (shard.max(r_hats) if rhat_allowed is None
-                                  else shard.sum(r_hats))
-                    pending.append({"k": k, "windows": windows,
-                                    "r_hats": _to_host_async(r_hats)})
+                    with span("viabel.faso.rhat_dispatch"):
+                        r_hats = ring_rhats(windows)
+                        if shard is not None:
+                            # on the device, before the pipelined read-back
+                            r_hats = (shard.max(r_hats) if rhat_allowed is None
+                                      else shard.sum(r_hats))
+                        pending.append({"k": k, "windows": windows,
+                                        "r_hats": _to_host_async(r_hats)})
             # read verdicts at least `pipeline` segments old (by dispatch
             # age, so a backed-off schedule doesn't stretch the lag)
             while pending and k - int(pending[0]["k"]) >= pipeline * self._k_check:
@@ -736,7 +742,7 @@ class FASO(Optimizer):
                                     or history["iterate_average_k_history"][-1] != k):
                     history["iterate_average_k_history"].append(k)
                     history["iterate_average_history"].append(iterate_average)
-                with Timer() as mcse_timer:
+                with span("viabel.faso.mcse_check"), Timer() as mcse_timer:
                     eff, mcse = _mcse_check(ring, t, W, mf_dim, c0=c0, gather=gather)
                     whole = shard is None or diagnostics or self._rhat_quantile is not None
                     if whole:
@@ -928,18 +934,20 @@ class RAABBVI(FASO):
             log_c0 = (float(np.mean(y)) - 2.0 * math.log(self._rho ** (-kappa0) - 1.0)
                       - 2.0 * kappa0 * float(np.mean(x)))
             init = [math.log(kappa0 / (1 - kappa0)), log_c0, 0.0]
-        # one host-to-device copy of the rows
-        y_t, x_t, w_t = torch.as_tensor(np.stack([y, x, w]), device=device)
-        init = torch.tensor(init, dtype=y_t.dtype, device=device).repeat(n_chains, 1)
-        samples = wlr_hmc(init, generator, (y_t, x_t, w_t, self._rho))
-        flat = samples.reshape(-1, samples.shape[-1])
-        if self._averaged_sgo():
-            fit = {"log_c": flat[:, 0], "sigma": torch.exp(flat[:, 1])}
-            kappa, log_c = 1.0, float(fit["log_c"].mean())
-        else:
-            fit = {"kappa": torch.sigmoid(flat[:, 0]), "log_c": flat[:, 1],
-                   "sigma": torch.exp(flat[:, 2])}
-            kappa, log_c = torch.stack([fit["kappa"].mean(), fit["log_c"].mean()]).tolist()
+        with span("viabel.raabbvi.regression"):
+            # one host-to-device copy of the rows
+            y_t, x_t, w_t = torch.as_tensor(np.stack([y, x, w]), device=device)
+            init = torch.tensor(init, dtype=y_t.dtype, device=device).repeat(n_chains, 1)
+            samples = wlr_hmc(init, generator, (y_t, x_t, w_t, self._rho))
+            flat = samples.reshape(-1, samples.shape[-1])
+            if self._averaged_sgo():
+                fit = {"log_c": flat[:, 0], "sigma": torch.exp(flat[:, 1])}
+                kappa, log_c = 1.0, float(fit["log_c"].mean())
+            else:
+                fit = {"kappa": torch.sigmoid(flat[:, 0]), "log_c": flat[:, 1],
+                       "sigma": torch.exp(flat[:, 2])}
+                kappa, log_c = torch.stack([fit["kappa"].mean(),
+                                            fit["log_c"].mean()]).tolist()
         return fit, kappa, float(np.exp(log_c))
 
     @staticmethod
@@ -1186,18 +1194,20 @@ class RAABBVI(FASO):
                 # the warm-start round with plain RMSProp (reference 815-818)
                 faso = FASO(RMSProp(learning_rate=lr_round, diagnostics=diagnostics),
                             max_history=self._max_history)
-                opt = faso.optimize(K_max, objective, iterate_average_curr,
-                                    generator=generator, resume_state=flight,
-                                    progress_callback=round_cb,
-                                    max_time=round_max_time)
+                with span("viabel.raabbvi.round"):
+                    opt = faso.optimize(K_max, objective, iterate_average_curr,
+                                        generator=generator, resume_state=flight,
+                                        progress_callback=round_cb,
+                                        max_time=round_max_time)
             else:
-                opt = super().optimize(K_max, objective, iterate_average_curr,
-                                       generator=generator, init_opt_state=opt_state,
-                                       learning_rate=lr_round,
-                                       mcse_threshold=mcse_round,
-                                       resume_state=flight,
-                                       progress_callback=round_cb,
-                                       max_time=round_max_time)
+                with span("viabel.raabbvi.round"):
+                    opt = super().optimize(K_max, objective, iterate_average_curr,
+                                           generator=generator, init_opt_state=opt_state,
+                                           learning_rate=lr_round,
+                                           mcse_threshold=mcse_round,
+                                           resume_state=flight,
+                                           progress_callback=round_cb,
+                                           max_time=round_max_time)
                 if not averaged:
                     # persist non-averaged SGO state across rounds (the
                     # reference only resets averaged SGOs, 865-866)

@@ -43,6 +43,8 @@ import math
 import torch
 from torch import func
 
+from .tracing import span
+
 __all__ = ["VariationalObjective", "StochasticVariationalObjective",
            "ExclusiveKL", "IWELBO", "AlphaDivergence", "DISInclusiveKL"]
 
@@ -99,8 +101,10 @@ class VariationalObjective:
         """The (stochastic) objective value and its gradient."""
         vp = var_param.detach().requires_grad_(True)
         with torch.enable_grad():
-            loss = self._loss(vp, generator)
-            (grad,) = torch.autograd.grad(loss, vp)
+            with span("viabel.step.loss"):
+                loss = self._loss(vp, generator)
+            with span("viabel.step.grad"):
+                (grad,) = torch.autograd.grad(loss, vp)
         return loss.detach(), grad
 
     def update(self, var_param, direction):

@@ -11,6 +11,8 @@ defines ``value_and_grad`` and ``update`` works unchanged.
 
 import torch
 
+from .tracing import span
+
 __all__ = ["Optimizer", "StochasticGradientOptimizer", "RMSProp",
            "AveragedRMSProp", "Adam", "AveragedAdam", "Adagrad", "WindowedAdagrad"]
 
@@ -77,10 +79,11 @@ class StochasticGradientOptimizer(Optimizer):
         """One step: ``(var_param, state, obj_state, value, direction,
         grad)``."""
         value, grad, obj_state = _obj_step(objective, var_param, generator, obj_state)
-        direction, state = self.descent_direction(grad, state)
-        var_param = objective.update(var_param, learning_rate * direction)
-        if self._weight_decay > 0.0:
-            var_param = var_param * (1.0 - self._weight_decay)
+        with span("viabel.step.rule"):
+            direction, state = self.descent_direction(grad, state)
+            var_param = objective.update(var_param, learning_rate * direction)
+            if self._weight_decay > 0.0:
+                var_param = var_param * (1.0 - self._weight_decay)
         return var_param, state, obj_state, value, direction, grad
 
     #: steps per progress report when a ``progress_callback`` is given
