@@ -30,6 +30,11 @@ written with save_pytree_orbax, read back and resumed.
 
     python3 chip_smoke.py
 
+A phase whose FASO runs stepped ends in a ``[graphs]`` line: the step
+helpers it made (CUDA graphs of one step), their replays, the sample
+counts captured, the failed captures, and the segments that ran eagerly
+by the reason ``optimizers.graph_refusal`` gave.
+
 Every phase raises on failure, so the process exits non-zero. Without a
 CUDA device it exits non-zero at once and prints no result. The last line
 of standard output is one JSON object; the line before it lists each
@@ -38,6 +43,8 @@ version, its time, the plain version's, the library call's, and the least
 time the card could take for the same work.
 """
 
+import collections
+import functools
 import json
 import math
 import os
@@ -161,6 +168,49 @@ PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
 def log(*args):
     print(*args, flush=True)
+
+
+def watch_graphs():
+    """End every phase with its ``[graphs]`` line (see the module
+    docstring): FASO's step helper and its refusal are wrapped to count,
+    and each ``phase_*`` function to report and reset the counts."""
+    import viabel_torch.faso as faso
+
+    made, eager = [], collections.Counter()
+
+    class Counted(faso._GraphedStep):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    refusal = faso.graph_refusal
+
+    def counted_refusal(*args, **kwargs):
+        reason = refusal(*args, **kwargs)
+        if reason is not None:
+            eager[reason] += 1
+        return reason
+
+    faso._GraphedStep, faso.graph_refusal = Counted, counted_refusal
+
+    def reporting(name, fn):
+        @functools.wraps(fn)
+        def phase(*args, **kwargs):
+            made.clear()
+            eager.clear()
+            out = fn(*args, **kwargs)
+            if made or eager:
+                log(f"[graphs] {name}: helpers={len(made)} "
+                    f"replays={sum(h.replays for h in made)} "
+                    f"captured={[sorted(h.graphs) for h in made]} "
+                    f"failed={sum(h.failed for h in made)} "
+                    f"eager_segments={dict(eager)}")
+            return out
+        return phase
+
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = reporting(name[len("phase_"):], fn)
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -2595,6 +2645,7 @@ def main():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
         return 1
     started = time.perf_counter()
+    watch_graphs()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

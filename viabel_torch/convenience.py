@@ -80,6 +80,8 @@ def pilot_standardize(dimension, log_density, *, n_iters=8000,
             "learning_rate or raise its num_mc_samples through pilot_kwargs")
     spec = ParamSpec([(name, int(dimension), affine(mu, scale))])
     std_model = TransformedModel(lambda p: model(p[name]), spec)
+    # the lambda hides the model's own statement (GraphSafety) from the objective
+    std_model.graph_safe = model.graph_refusal() is None
     return std_model, spec, res
 
 

@@ -27,7 +27,7 @@ from torch import func
 
 from .ops.trsm import (KERNEL_MAX_DIM, cholesky_factor, stl_transpose_solve,
                        vmem_solve_triangular)
-from .utils import check_device, chisquare, ensure_2d
+from .utils import GraphSafety, check_device, chisquare, ensure_2d
 
 __all__ = ["ApproximationFamily", "MFGaussian", "MFStudentT", "FullRankGaussian",
            "MultivariateT", "LRGaussian", "NeuralNet", "NVPFlow"]
@@ -71,8 +71,10 @@ def _tri_solve(T, B, lower=True):
     return torch.linalg.solve_triangular(T, B, upper=not lower)
 
 
-class ApproximationFamily:
-    """Abstract base for variational approximation families."""
+class ApproximationFamily(GraphSafety):
+    """Abstract base for variational approximation families. A family that
+    draws through a ``base_sampler`` runs the sampler's host code every
+    step, so a CUDA graph never replays it (:class:`GraphSafety`)."""
 
     def __init__(self, dim, var_param_dim, supports_entropy, supports_kl,
                  device="cuda", dtype=None, base_sampler=None):
@@ -90,6 +92,11 @@ class ApproximationFamily:
         draws from the generator. A sampler has a method
         ``normal(generator, n_samples, width, dtype, device)``."""
         return self._base_sampler
+
+    def graph_refusal(self):
+        if self._base_sampler is not None:
+            return "the family draws through a base_sampler, host code run every step"
+        return super().graph_refusal()
 
     def _base_normal(self, generator, n_samples, width, dtype, device):
         if self._base_sampler is None:
@@ -238,6 +245,8 @@ class _MeanFieldLocScale(ApproximationFamily):
 class MFGaussian(_MeanFieldLocScale):
     """Mean-field Gaussian, ``var_param = [mu, log_sigma]``."""
 
+    graph_safe = True
+
     def __init__(self, dim, base_sampler=None, device="cuda", dtype=None):
         super().__init__(dim, True, True, device, dtype, base_sampler)
 
@@ -306,6 +315,8 @@ class MFStudentT(_MeanFieldLocScale):
     the JAX package, the entropy drops df-only constants (reference
     approximations.py:276-279), and it has no base-sampler hook.
     """
+
+    graph_safe = True
 
     def __init__(self, dim, df, device="cuda", dtype=None):
         self._df = _check_df(df)
@@ -439,6 +450,8 @@ def _stl_whiten_T(theta_stop, L_stop, w_stop):
 class FullRankGaussian(_CholeskyFamily):
     """Full-rank Gaussian, ``Sigma = L L^T``; sampling is ``mu + z @ L.T``."""
 
+    graph_safe = True
+
     def __init__(self, dim, init_log_diag=0.0, base_sampler=None,
                  device="cuda", dtype=None):
         self._init_log_diag = float(init_log_diag)
@@ -521,6 +534,8 @@ class MultivariateT(_CholeskyFamily):
     of their squares (the JAX package's QMC route, families.py:644-651).
     Without one, ``z`` and the chi-square come from the generator.
     """
+
+    graph_safe = True
 
     def __init__(self, dim, df, base_sampler=None, device="cuda", dtype=None):
         df = _check_df(df)
@@ -622,6 +637,8 @@ class LRGaussian(ApproximationFamily):
     the two packages start from different ``B``. Carry a JAX start across
     with :func:`viabel_torch.convert.params_from_jax`.
     """
+
+    graph_safe = True
 
     def __init__(self, dim, k, base_sampler=None, device="cuda", dtype=None):
         self._k = int(k)
@@ -789,6 +806,8 @@ class NeuralNet(ApproximationFamily):
     ``mean_and_cov`` is estimated from ``mc_samples`` draws.
     """
 
+    graph_safe = True
+
     def __init__(self, layers_shapes, nonlinearity=torch.tanh, last=torch.tanh,
                  mc_samples=10000, base_sampler=None, device="cuda", dtype=None):
         self._layers_shapes = [tuple(int(v) for v in s) for s in layers_shapes]
@@ -865,6 +884,11 @@ class NVPFlow(ApproximationFamily):
     ``prior_param``; the flow lives on the prior's device and in its
     dtype. ``mask`` holds one 0/1 row a coupling; it is cast to the
     parameter's dtype where it is used."""
+
+    graph_safe = True
+
+    def graph_refusal(self):
+        return super().graph_refusal() or self.prior.graph_refusal()
 
     def __init__(self, layers_t, layers_s, mask, prior, prior_param, dim,
                  activation=torch.tanh, mc_samples=10000):

@@ -6,7 +6,12 @@ The per-step optimization runs in *segments* of ``k_check`` steps that
 write iterates into a fixed-size ``(R, D)`` history ring on the device;
 the data-dependent control (R-hat window search, MCSE recheck schedule,
 learning-rate decay, termination) runs on the host between segments.
-PyTorch runs eagerly, so a segment is a Python loop of device steps.
+A segment is a Python loop of device steps; where the route allows it
+(:func:`viabel_torch.optimizers.graph_refusal`), each step past two
+warm-up steps at a sample count is one replay of a CUDA graph of the whole
+step (:class:`viabel_torch.optimizers._GraphedStep`), which draws,
+computes and updates exactly as the eager step does; host values the step
+reads are those of the capture.
 
 R-hat checks are pipelined as in the JAX package: each check is launched
 on the device at once and its ``(K,)`` result copied to pinned host memory
@@ -55,8 +60,8 @@ from .mc_diagnostics import (ess_and_mcse_windowed, ring_window_mean,
 from .ops.ringstats import colsum
 from .ops.wlr import wlr_hmc
 from .optimizers import (AveragedAdam, AveragedRMSProp, Optimizer, RMSProp,
-                         StochasticGradientOptimizer, _obj_check_state, _obj_init_state,
-                         default_generator)
+                         StochasticGradientOptimizer, _GraphedStep, _obj_check_state,
+                         _obj_init_state, default_generator, graph_refusal)
 from .tracing import span
 from .utils import Timer, check_device
 
@@ -351,6 +356,14 @@ class FASO(Optimizer):
 
     Beside the JAX package's results, ``results["rhat_verdicts"]`` lists
     each R-hat verdict read as ``(k, best_window, statistic, passed)``.
+
+    On a CUDA device the steps replay CUDA graphs where the step rule, the
+    objective, its family and its model state they are safe to
+    (:func:`viabel_torch.optimizers.graph_refusal`). A replayed step reads
+    the host values of its capture: a Python attribute of the model or the
+    family changed between steps, or between two ``optimize`` calls on the
+    same objects, is not seen, as under the JAX package's ``jit``. The
+    sample count, the learning rate and a swapped model are seen.
     """
 
     def __init__(self, sgo, *, mcse_threshold=0.1, W_min=200, ESS_min=None,
@@ -362,6 +375,7 @@ class FASO(Optimizer):
         if not isinstance(sgo, StochasticGradientOptimizer):
             raise ValueError("sgo must be a subclass of StochasticGradientOptimizer")
         self._sgo = sgo
+        self._graphed = None  # the _GraphedStep of the last segment that had one
         self._mesh = mesh
         self._shard_axis = shard_axis
         self._mcse_threshold = float(mcse_threshold)
@@ -406,24 +420,45 @@ class FASO(Optimizer):
                             self._rhat_group, self._rhat_quantile,
                             self._rhat_backoff, 1)
 
+    def _graphed_step(self, objective, var_param, obj_state, generator):
+        """The helper that replays a segment's steps from CUDA graphs, kept
+        from segment to segment and from call to call while it serves the
+        same step rule, objective, model and generator; None where the
+        steps run eagerly (:func:`~viabel_torch.optimizers.graph_refusal`).
+        Host values a replayed step reads are those of its capture."""
+        if graph_refusal(self._sgo, objective, var_param, obj_state,
+                         self._mesh) is not None:
+            return None
+        if self._graphed is None or not self._graphed.serves(
+                self._sgo, objective, var_param, generator):
+            self._graphed = _GraphedStep(self._sgo, objective, var_param, generator)
+        return self._graphed
+
     def _run_segment(self, objective, var_param, opt_state, obj_state, generator,
                      ring, t, lr, steps, diagnostics, cols=slice(None)):
         """``steps`` optimizer steps, each iterate's columns ``cols`` (the
         ring's shard) written to ring slot ``t % R``. Returns the carry and
         the segment's outputs (values, and per-step gradients and
-        directions on the host in diagnostics mode)."""
+        directions on the host in diagnostics mode). Where the route allows
+        it (:meth:`_graphed_step`), the steps replay CUDA graphs."""
         R = ring.shape[0]
         values, grads, dirs = [], [], []
+        graphed = self._graphed_step(objective, var_param, obj_state, generator)
         for _ in range(steps):
             with span("viabel.step"):
-                var_param, opt_state, obj_state, value, direction, grad = self._sgo.step(
-                    objective, var_param, opt_state, obj_state, generator, lr)
+                if graphed is None:
+                    var_param, opt_state, obj_state, value, direction, grad = self._sgo.step(
+                        objective, var_param, opt_state, obj_state, generator, lr)
+                else:
+                    var_param, opt_state, value = graphed.step(var_param, opt_state, lr)
                 ring[t % R] = var_param[cols]
             t += 1
             values.append(value)
             if diagnostics:
                 grads.append(grad)
                 dirs.append(direction)
+        if graphed is not None:
+            var_param, opt_state = graphed.release(var_param, opt_state)
         outs = (torch.stack(values),)
         if diagnostics:
             outs += (torch.stack(grads).cpu().numpy(),

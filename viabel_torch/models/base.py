@@ -15,10 +15,12 @@ step sees the same draw (:func:`viabel_torch.objectives._step_model`).
 import torch
 from torch import func
 
+from ..utils import GraphSafety
+
 __all__ = ["Model", "TemperedModel", "SubsampledModel"]
 
 
-class Model:
+class Model(GraphSafety):
     """Wraps an (unnormalized) log density.
 
     Parameters
@@ -35,6 +37,12 @@ class Model:
     #: ``bind(generator)``; this is the JAX package's ``needs_key``, with
     #: the step's generator in place of half of the step's key
     needs_generator = False
+
+    #: a CUDA graph may replay the wrapped callable's device work
+    #: (:class:`~viabel_torch.utils.GraphSafety`); host values it reads are
+    #: frozen at capture, and a read back to the host makes the capture
+    #: fail and the steps run eagerly
+    graph_safe = True
 
     def __init__(self, log_density, constrain_fn=None):
         self._log_density = log_density
@@ -65,6 +73,9 @@ class Model:
 class TemperedModel(Model):
     """A model whose log density is scaled by an inverse temperature:
     ``beta * log_density(x)``."""
+
+    #: ``set_inverse_temperature`` changes a host value between steps
+    graph_safe = False
 
     def __init__(self, log_density, inverse_temp=1.0, **kwargs):
         super().__init__(log_density, **kwargs)
@@ -136,6 +147,8 @@ class SubsampledModel(Model):
     """
 
     needs_generator = True
+    #: the minibatch is drawn through the ``index_sampler`` hook every step
+    graph_safe = False
 
     def __init__(self, log_prior, log_likelihood, data, batch_size, *,
                  constrain_fn=None, index_sampler=None):

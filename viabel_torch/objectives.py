@@ -44,6 +44,7 @@ import torch
 from torch import func
 
 from .tracing import span
+from .utils import GraphSafety
 
 __all__ = ["VariationalObjective", "StochasticVariationalObjective",
            "ExclusiveKL", "IWELBO", "AlphaDivergence", "DISInclusiveKL"]
@@ -83,8 +84,14 @@ def _ShardAxis(mesh, axis_name):
     return MeshAxis(mesh, axis_name)
 
 
-class VariationalObjective:
-    """A variational objective to minimize."""
+class VariationalObjective(GraphSafety):
+    """A variational objective to minimize.
+
+    Whether a CUDA graph may replay its steps (:class:`GraphSafety`): the
+    objective's own statement, then its family's and its model's. A model
+    that is a plain callable, not a :class:`~viabel_torch.models.Model`,
+    is replayed as ``jax.jit`` would trace it.
+    """
 
     def __init__(self, approx, model):
         self._check_model(model)
@@ -96,6 +103,12 @@ class VariationalObjective:
 
     def _loss(self, var_param, generator):
         raise NotImplementedError()
+
+    def graph_refusal(self):
+        refusal = super().graph_refusal() or self.approx.graph_refusal()
+        if refusal is None and isinstance(self.model, GraphSafety):
+            refusal = self.model.graph_refusal()
+        return refusal
 
     def value_and_grad(self, var_param, generator):
         """The (stochastic) objective value and its gradient."""
@@ -189,6 +202,8 @@ class ExclusiveKL(StochasticVariationalObjective):
         ``RuntimeError`` naming the cause.
     """
 
+    graph_safe = True
+
     def __init__(self, approx, model, num_mc_samples, use_path_deriv=False,
                  hessian_approx_method=None):
         if hessian_approx_method not in _HESSIAN_METHODS:
@@ -204,6 +219,11 @@ class ExclusiveKL(StochasticVariationalObjective):
         self.hessian_approx_method = hessian_approx_method
         self._use_path_deriv = bool(use_path_deriv)
         super().__init__(approx, model, num_mc_samples)
+
+    def graph_refusal(self):
+        if self.hessian_approx_method is not None:
+            return "the control-variate gradient (hessian_approx_method)"
+        return super().graph_refusal()
 
     def _loss(self, var_param, generator, num_samples=None):
         approx = self.approx
@@ -356,6 +376,8 @@ class IWELBO(StochasticVariationalObjective):
     ELBO gradient. ``use_dreg=False`` gives the plain IWAE gradient.
     """
 
+    graph_safe = True
+
     def __init__(self, approx, model, num_mc_samples, use_dreg=True):
         self._use_dreg = bool(use_dreg)
         super().__init__(approx, model, num_mc_samples)
@@ -430,6 +452,8 @@ class AlphaDivergence(StochasticVariationalObjective):
     On a Cholesky family, ``log q`` and its gradient run the triangular
     solve kernel forward and in its adjoint.
     """
+
+    graph_safe = True
 
     def __init__(self, approx, model, num_mc_samples, alpha):
         self._alpha = float(alpha)
@@ -519,6 +543,10 @@ class DISInclusiveKL(StochasticVariationalObjective):
     injects the indices here, as it injects base draws through a family's
     ``base_sampler``.
     """
+
+    #: its state is threaded between steps, and the refresh is chosen on
+    #: the host
+    graph_safe = False
 
     def __init__(self, approx, model, num_mc_samples, ess_target,
                  temper_prior, temper_prior_params, use_resampling=True,

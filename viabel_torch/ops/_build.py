@@ -55,9 +55,10 @@ def reset_launch_counts():
         _LAUNCHES[name] = 0
 
 
-def count_launch(name):
-    """Called by a wrapper right after its kernel launched."""
-    _LAUNCHES[name] += 1
+def count_launch(name, n=1):
+    """Called by a wrapper right after its kernel launched; ``n`` where a
+    CUDA graph replays launches (or takes back those its capture recorded)."""
+    _LAUNCHES[name] += n
 
 
 def _find_nvcc():

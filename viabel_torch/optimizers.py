@@ -7,11 +7,17 @@ in a ``(window, D)`` ring tensor. An objective's estimator state (the
 objective-state protocol of :mod:`viabel_torch.objectives`) is threaded
 through the loop; the protocol is duck-typed, so an objective that only
 defines ``value_and_grad`` and ``update`` works unchanged.
+
+:class:`_GraphedStep` replays one step of a rule over an objective from
+CUDA graphs where :func:`graph_refusal` finds nothing against it; FASO's
+segments drive it, and the loop of ``optimize`` here stays eager.
 """
 
 import torch
 
+from .ops import _build
 from .tracing import span
+from .utils import GraphSafety
 
 __all__ = ["Optimizer", "StochasticGradientOptimizer", "RMSProp",
            "AveragedRMSProp", "Adam", "AveragedAdam", "Adagrad", "WindowedAdagrad"]
@@ -50,8 +56,14 @@ class Optimizer:
         raise NotImplementedError()
 
 
-class StochasticGradientOptimizer(Optimizer):
+class StochasticGradientOptimizer(Optimizer, GraphSafety):
     """Fixed-learning-rate SGD with iterate averaging."""
+
+    #: a rule is safe to replay (:class:`GraphSafety`) where, after its
+    #: first step, it reads no host value that changes from step to step (a
+    #: host entry of its state, such as a step count, may change by the
+    #: same amount every step)
+    graph_safe = True
 
     def __init__(self, learning_rate, *, weight_decay=0.0, iterate_avg_prop=0.2,
                  diagnostics=False):
@@ -140,6 +152,9 @@ class StochasticGradientOptimizer(Optimizer):
 class RMSProp(StochasticGradientOptimizer):
     """RMSProp; like the reference, the state is seeded with the first
     squared gradient (reference optimization.py:189-196)."""
+
+    #: ``t`` tells only the first step, the seeding one
+    graph_safe = True
 
     def __init__(self, learning_rate, *, weight_decay=0.0, iterate_avg_prop=0.2,
                  beta=0.9, jitter=1e-8, diagnostics=False):
@@ -278,3 +293,200 @@ class WindowedAdagrad(StochasticGradientOptimizer):
         ring[t % self._window_size] = grad**2
         mean_sq = torch.sum(ring, dim=0) / min(t + 1, self._window_size)
         return grad / torch.sqrt(self._jitter + mean_sq), {"ring": ring, "t": t + 1}
+
+
+def graph_refusal(sgo, objective, var_param, obj_state, mesh=None):
+    """Why the steps of ``sgo`` over ``objective`` cannot be replayed from a
+    CUDA graph (:class:`_GraphedStep`), or None where a replayed step is the
+    same computation as an eager one. The step rule and the objective, with
+    its family and model, state their own safety
+    (:class:`~viabel_torch.utils.GraphSafety`); an objective that states
+    nothing is refused. To those this adds what the run shows."""
+    if sgo._diagnostics:
+        return "diagnostics mode keeps every step's gradient and direction"
+    if mesh is not None:
+        return "the history ring is split over a mesh"
+    if obj_state:
+        return "the objective threads estimator state between steps"
+    for part in (sgo, objective):
+        if not isinstance(part, GraphSafety):
+            return f"{type(part).__name__} states nothing about replay"
+        refusal = part.graph_refusal()
+        if refusal is not None:
+            return refusal
+    if not var_param.is_cuda:
+        return "the parameters are not on a CUDA device"
+    return None
+
+
+#: eager steps at a sample count before its step is captured: the first may
+#: take a rule's seeding branch, the second is the step the graph records
+_WARM_STEPS = 2
+
+
+class _GraphedStep:
+    """One optimizer step of ``sgo`` over ``objective``, replayed from CUDA
+    graphs: the loss (draws, model, kernels), ``torch.autograd.grad``, the
+    step rule and the update, as one ``CUDAGraph.replay()``.
+
+    A graph holds the step at one sample count S and reads and writes
+    static buffers: the iterate, the rule's state tensors and a 0-d
+    learning rate, filled where a carry enters. Each replay's loss is
+    cloned from the graph's output before the next replay can overwrite
+    it; the rule's host entries (RMSProp's ``t``) advance by what the
+    recorded step added. The graphs are made from real steps: at each S
+    the first ``_WARM_STEPS`` steps run eagerly, and the last of them is
+    captured after it ran. Capture runs nothing, so no step is added or
+    lost. The step's generator is registered with each graph: a replay
+    draws what an eager step would, and leaves the generator where an
+    eager step would. A carry at the rule's first step (the host entries
+    of ``init_state``) runs eagerly. A capture that raises (a model that
+    reads a value back to the host) leaves every later step eager. The
+    graphs share one memory pool; of what lives in it, only a graph's own
+    loss outlives its replay, and it is read before any other replay, so
+    the graphs replay in any order. Kernel launches recorded at capture
+    are counted at each replay (``ops.launch_counts()``).
+
+    Every other host value the step reads is frozen at capture: a Python
+    float on the model, the family or the objective keeps its value at
+    capture in every replay. :func:`graph_refusal` lets through only parts
+    that state they read none that changes (``GraphSafety``), and
+    :meth:`serves` keys the graphs by the objects in use.
+    """
+
+    def __init__(self, sgo, objective, var_param, generator):
+        self.sgo, self.objective, self.generator = sgo, objective, generator
+        self.model = getattr(objective, "model", None)
+        self.var_param = torch.empty_like(var_param)
+        self.lr = var_param.new_zeros(())
+        self.lr_host = None
+        self.first = {k: v for k, v in sgo.init_state(var_param).items()
+                      if not isinstance(v, torch.Tensor)}
+        self.state = None       # the rule's state tensors, made at the first capture
+        self.host_step = {}     # what a step adds to each host entry of the state
+        self.graphs = {}        # sample count -> replay
+        self.warm = {}          # sample count -> eager steps run at it
+        self.failed = False
+        self.replays = 0
+        self.pool = self.stream = None  # made at the first capture
+
+    def serves(self, sgo, objective, var_param, generator):
+        """Whether this helper's graphs are those steps' graphs."""
+        like = self.var_param
+        return (sgo is self.sgo and objective is self.objective
+                and getattr(objective, "model", None) is self.model
+                and generator is self.generator and var_param.shape == like.shape
+                and var_param.dtype == like.dtype and var_param.device == like.device)
+
+    def step(self, var_param, state, lr):
+        """One step from ``(var_param, state)`` at learning rate ``lr``:
+        ``(var_param, state, value)``. The iterate and state tensors of a
+        replayed step are the static buffers (:meth:`release`)."""
+        S = getattr(self.objective, "num_mc_samples", None)
+        replay = self.graphs.get(S)
+        loaded = var_param is self.var_param
+        if replay is None or (not loaded and self.first and all(
+                state.get(k) == v for k, v in self.first.items())):
+            var_param, out, _, value, _, _ = self.sgo.step(
+                self.objective, var_param, state, {}, self.generator, lr)
+            self.warm[S] = self.warm.get(S, 0) + 1
+            if replay is None and self.warm[S] >= _WARM_STEPS and not self.failed:
+                with span("viabel.step.capture"):
+                    self._capture(S, state, out)
+            return var_param, out, value
+        with span("viabel.step.replay"):
+            if not loaded:
+                self.var_param.copy_(var_param)
+                for k, v in self.state.items():
+                    v.copy_(state[k])
+            if lr != self.lr_host:
+                self.lr.fill_(lr)
+                self.lr_host = lr
+            value = replay().clone()
+            self.replays += 1
+            state = {**state, **self.state,
+                     **{k: state[k] + d for k, d in self.host_step.items()}}
+            return self.var_param, state, value
+
+    def release(self, var_param, state):
+        """The carry as a caller may keep it: copies of the static buffers,
+        which a later replay overwrites."""
+        if var_param is not self.var_param:
+            return var_param, state
+        return var_param.clone(), {k: v.clone() if isinstance(v, torch.Tensor) else v
+                                   for k, v in state.items()}
+
+    def _capture(self, S, before, state):
+        """Record the step at sample count ``S`` from a carry like
+        ``state``, which an eager step just made from ``before``; on
+        failure, leave every later step eager."""
+        if self.state is None:
+            self.state = {k: torch.empty_like(v) for k, v in state.items()
+                          if isinstance(v, torch.Tensor)}
+        host = {k: v for k, v in state.items() if k not in self.state}
+
+        def body():
+            vp, st, _, value, _, _ = self.sgo.step(
+                self.objective, self.var_param, {**host, **self.state}, {},
+                self.generator, self.lr)
+            self.var_param.copy_(vp)
+            for k, v in self.state.items():
+                v.copy_(st[k])
+            return value
+
+        replay = self._record(body)
+        if replay is None:
+            self.failed = True
+            return
+        self.host_step = {k: v - before[k] for k, v in host.items()}
+        self.graphs[S] = replay
+
+    def _record(self, body):
+        """``body``'s device work as a replay callable that returns what
+        ``body`` returned, or None where the capture raised. A capture
+        launches nothing, so the kernel launches its wrappers counted are
+        taken back and counted at each replay."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(self.var_param.device)
+        before = _build.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        current = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(current)
+        try:
+            with torch.cuda.stream(self.stream):
+                graph.capture_begin(pool=self.pool)
+                try:
+                    out = body()
+                finally:
+                    graph.capture_end()
+        except RuntimeError:
+            self._end_capture_mode()
+            return None
+        finally:
+            launches = {k: n - before[k] for k, n in _build.launch_counts().items()
+                        if n != before[k]}
+            for k, n in launches.items():
+                _build.count_launch(k, -n)
+        current.wait_stream(self.stream)
+
+        def replay():
+            graph.replay()
+            for k, n in launches.items():
+                _build.count_launch(k, n)
+            return out
+
+        return replay
+
+    def _end_capture_mode(self):
+        """A capture cut short by an error leaves the generators it
+        registered (this step's, and the default one) in capture mode, where
+        an eager draw raises; one whole capture takes them out of it. Its
+        graph is never replayed."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin()
+            self.lr.add_(0)
+            graph.capture_end()

@@ -55,6 +55,9 @@ class ShardedExclusiveKL(ExclusiveKL):
     rounds it up to a multiple of the axis size.
     """
 
+    #: each step all-reduces over the mesh's ranks
+    graph_safe = False
+
     def __init__(self, approx, model, num_mc_samples, mesh, axis_name="mc",
                  use_path_deriv=False):
         self._axis = MeshAxis(mesh, axis_name)

@@ -29,6 +29,12 @@ that call. The spans and what each encloses:
     (the autograd route of ``value_and_grad``).
 ``viabel.step.rule``
     the step rule: descent direction, update and weight decay.
+``viabel.step.replay``
+    a step replayed from a CUDA graph (``optimizers._GraphedStep``), inside
+    ``viabel.step``: the carry's load where it enters, the graph's launch
+    and the loss's copy. A replayed step opens none of the three above.
+``viabel.step.capture``
+    one capture of a step's CUDA graph, after the eager step it records.
 ``viabel.faso.rhat_dispatch``
     the R-hat statistics over the ring and the start of their copy to the
     host.

@@ -428,6 +428,8 @@ class TransformedModel(Model):
     single vectors and batches alike.
     """
 
+    graph_safe = True
+
     def __init__(self, log_density, spec, **kwargs):
         kwargs.setdefault("constrain_fn", spec.constrain)
         super().__init__(log_density, **kwargs)

@@ -3,7 +3,8 @@
 The TPU-specific helpers of the JAX module (``pack_rows``,
 ``packed_width``, ``unpack_rows`` for the ``(8, 128)`` tiling, and the XLA
 compilation cache) have no counterpart: the port keeps plain ``(R, D)``
-rings and runs eagerly.
+rings. :class:`GraphSafety` is how a step rule, an objective, a family and
+a model each state whether a CUDA graph may replay their part of a step.
 """
 
 import math
@@ -11,7 +12,35 @@ import time
 
 import torch
 
-__all__ = ["Timer", "ensure_2d", "check_device", "standard_gamma", "chisquare"]
+__all__ = ["Timer", "ensure_2d", "check_device", "standard_gamma", "chisquare",
+           "GraphSafety"]
+
+
+class GraphSafety:
+    """A part of an optimizer step that states whether a CUDA graph of the
+    step may replay it (:class:`viabel_torch.optimizers._GraphedStep`).
+
+    A graph records the step's device work once and replays none of the
+    host code that chose it: every host value the step reads (a Python
+    float on a model, a step count) is frozen at capture, as under
+    ``jax.jit``. A class whose step work reads no host value that changes
+    between steps states ``graph_safe = True`` in its own body; a subclass
+    that states nothing is never replayed, so host code added in a
+    subclass is never replayed unseen. :meth:`graph_refusal` adds what an
+    instance shows.
+    """
+
+    graph_safe = False
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        cls.graph_safe = cls.__dict__.get("graph_safe", False)
+
+    def graph_refusal(self):
+        """Why this part of a step cannot be replayed, or None."""
+        if not self.graph_safe:
+            return f"{type(self).__name__} is not stated safe to replay"
+        return None
 
 
 class Timer:
