@@ -211,7 +211,9 @@ def test_hessian_vector_product_matches_jax(kind):
 def test_raabbvi_over_a_family_without_kl_falls_back_to_faso(capsys):
     """MultivariateT has no closed-form KL, so bbvi's RAABBVI route warns
     and runs FASO, as the JAX package does (faso.py:1256-1258): one
-    round, and a stopping record in FASO's form."""
+    round and a stopping record in FASO's form. Unlike the JAX package's,
+    ``k_conv`` and ``resume_state`` are RAABBVI's: a one-round list, and
+    the round's FASO state under ``"flight"``."""
     table = np.random.RandomState(8).randn(64, D + DF)
     _, ft = families("mvt", D, table)
     res = vt.bbvi(D, objective=vt.ExclusiveKL(ft, models()[1], 4), n_iters=60,
@@ -219,3 +221,5 @@ def test_raabbvi_over_a_family_without_kl_falls_back_to_faso(capsys):
     assert "does not support KL. Using FASO." in capsys.readouterr().out
     assert res["value_history"].shape == (60,)
     assert "k_stopped" in res and "k_stopped_final" not in res
+    assert res["k_conv"] == [None] and res["k_stopped"] is None
+    assert int(res["resume_state"]["flight"]["k"]) == 60

@@ -5,7 +5,7 @@ A port of :mod:`viabel_tpu` (the JAX package, which stays the reference)
 that keeps its module names, public function names and flat parameter
 layouts. It covers ``bbvi``'s adaptive path (FASO and RAABBVI), the
 parametric families (MFGaussian, MFStudentT, FullRankGaussian,
-MultivariateT, LRGaussian) and the neural ones (NeuralNet, NVPFlow), the
+MultivariateT, LRGaussian) and the neural ones (NeuralNet, NVPFlow, RealNVP), the
 ExclusiveKL (with its control variates), IWELBO, AlphaDivergence and
 DISInclusiveKL objectives, every step rule, FASO and RAABBVI resume and
 wall-clock budgets with the ``.npz`` checkpoint, the tempered and
@@ -37,7 +37,7 @@ from .diagnostics import (all_diagnostics, divergence_bound, error_bounds, ksd, 
 from .distributions import multivariate_normal_logpdf, multivariate_t_logpdf
 from .faso import FASO, RAABBVI
 from .families import (ApproximationFamily, FullRankGaussian, LRGaussian, MFGaussian,
-                       MFStudentT, MultivariateT, NeuralNet, NVPFlow)
+                       MFStudentT, MultivariateT, NeuralNet, NVPFlow, RealNVP)
 from .models import Model, SubsampledModel, TemperedModel, zoo
 from .objectives import (AlphaDivergence, DISInclusiveKL, ExclusiveKL, IWELBO,
                          StochasticVariationalObjective, VariationalObjective)
@@ -52,7 +52,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "ApproximationFamily", "MFGaussian", "MFStudentT", "FullRankGaussian",
-    "MultivariateT", "LRGaussian", "NeuralNet", "NVPFlow",
+    "MultivariateT", "LRGaussian", "NeuralNet", "NVPFlow", "RealNVP",
     "Model", "SubsampledModel", "TemperedModel", "zoo",
     "VariationalObjective", "StochasticVariationalObjective", "ExclusiveKL",
     "IWELBO", "AlphaDivergence", "DISInclusiveKL",

@@ -13,8 +13,8 @@ between the packages (:mod:`viabel_torch.convert`):
 - ``LRGaussian``: ``[mu (d), log_sigma (d), B (d*k, row-major)]`` with
   ``Sigma = B B^T + diag(exp(2 log_sigma))``;
 - ``NeuralNet``: per layer ``W (m*n, row-major)`` then ``b (n)``;
-- ``NVPFlow``: per coupling the ``t`` network's then the ``s`` network's
-  ``NeuralNet`` parameters.
+- ``NVPFlow`` and ``RealNVP``: per coupling the ``t`` network's then the
+  ``s`` network's ``NeuralNet`` parameters.
 
 Families carry the ``device`` and ``dtype`` their parameters live on; the
 device defaults to ``"cuda"`` and raises where no card is present.
@@ -27,10 +27,11 @@ from torch import func
 
 from .ops.trsm import (KERNEL_MAX_DIM, cholesky_factor, stl_transpose_solve,
                        vmem_solve_triangular)
+from .tracing import span
 from .utils import GraphSafety, check_device, chisquare, ensure_2d
 
 __all__ = ["ApproximationFamily", "MFGaussian", "MFStudentT", "FullRankGaussian",
-           "MultivariateT", "LRGaussian", "NeuralNet", "NVPFlow"]
+           "MultivariateT", "LRGaussian", "NeuralNet", "NVPFlow", "RealNVP"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -820,14 +821,14 @@ class NeuralNet(ApproximationFamily):
                          device, dtype, base_sampler)
 
     def unpack(self, var_param):
-        """The per-layer ``(W (m, n), b (n))`` pairs."""
-        params, i = [], 0
-        for m, n in self._layers_shapes:
-            W = var_param[i: i + m * n].view(m, n)
-            i += m * n
-            params.append((W, var_param[i: i + n]))
-            i += n
-        return params
+        """The per-layer ``(W (m, n), b (n))`` pairs: views of one
+        ``torch.split``, whose backward writes the gradient in one pass
+        (a slice's backward would fill a zero vector of the whole
+        parameter for each piece)."""
+        sizes = [k for m, n in self._layers_shapes for k in (m * n, n)]
+        pieces = torch.split(var_param, sizes)
+        return [(pieces[2 * j].view(m, n), pieces[2 * j + 1])
+                for j, (m, n) in enumerate(self._layers_shapes)]
 
     def forward(self, var_param, x):
         """Push ``x`` through the network. Like the JAX package, the
@@ -883,7 +884,14 @@ class NVPFlow(ApproximationFamily):
     base distribution is any family of the port, ``prior`` at
     ``prior_param``; the flow lives on the prior's device and in its
     dtype. ``mask`` holds one 0/1 row a coupling; it is cast to the
-    parameter's dtype where it is used."""
+    parameter's dtype where it is used.
+
+    :meth:`init_param` is all zeros, as in the JAX package. From there only
+    the output biases ever move: every hidden activation and every output
+    matrix is zero, so the gradients of the hidden layers and of the
+    output matrices are exactly zero and stay so. Fit from
+    :class:`RealNVP`'s start, or pass an ``init_var_param`` whose layers
+    are not all zero."""
 
     graph_safe = True
 
@@ -907,43 +915,43 @@ class NVPFlow(ApproximationFamily):
         super().__init__(dim, self._n_coupling * per_layer, False, False, device, dtype)
 
     def unpack(self, var_param):
-        """The per-coupling ``(t_params, s_params)`` flat vectors."""
-        nt, ns = self.t_net.var_param_dim, self.s_net.var_param_dim
-        out, i = [], 0
-        for _ in range(self._n_coupling):
-            out.append((var_param[i: i + nt], var_param[i + nt: i + nt + ns]))
-            i += nt + ns
-        return out
+        """The per-coupling ``(t_params, s_params)`` flat vectors, views of
+        one ``torch.split`` (see :meth:`NeuralNet.unpack`)."""
+        pieces = torch.split(var_param, [self.t_net.var_param_dim,
+                                         self.s_net.var_param_dim] * self._n_coupling)
+        return list(zip(pieces[0::2], pieces[1::2]))
 
     def _masks(self, var_param):
         return self.mask.to(dtype=var_param.dtype)
 
     def g(self, var_param, z):
         """Inverse flow, latent to data (reference 494-511)."""
-        x, masks = z, self._masks(var_param)
-        for i, (tp, sp) in enumerate(self.unpack(var_param)):
-            m = masks[i]
-            x_masked = x * m
-            s = self.s_net.forward(sp, x_masked) * (1.0 - m)
-            t = self.t_net.forward(tp, x_masked) * (1.0 - m)
-            x = x_masked + (1.0 - m) * (x * torch.exp(s) + t)
-        return x
+        with span("viabel.flow.sample"):
+            x, masks = z, self._masks(var_param)
+            for i, (tp, sp) in enumerate(self.unpack(var_param)):
+                m = masks[i]
+                x_masked = x * m
+                s = self.s_net.forward(sp, x_masked) * (1.0 - m)
+                t = self.t_net.forward(tp, x_masked) * (1.0 - m)
+                x = x_masked + (1.0 - m) * (x * torch.exp(s) + t)
+            return x
 
     def f(self, var_param, x):
         """Forward flow, data to latent, with ``log |det J|`` (reference
         513-531)."""
-        z, masks = x, self._masks(var_param)
-        log_det_J = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-        params = self.unpack(var_param)
-        for i in reversed(range(self._n_coupling)):
-            tp, sp = params[i]
-            m = masks[i]
-            z_masked = m * z
-            s = self.s_net.forward(sp, z_masked) * (1.0 - m)
-            t = self.t_net.forward(tp, z_masked) * (1.0 - m)
-            z = (1.0 - m) * (z - t) * torch.exp(-s) + z_masked
-            log_det_J = log_det_J - torch.sum(s, dim=1)
-        return z, log_det_J
+        with span("viabel.flow.log_density"):
+            z, masks = x, self._masks(var_param)
+            log_det_J = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+            params = self.unpack(var_param)
+            for i in reversed(range(self._n_coupling)):
+                tp, sp = params[i]
+                m = masks[i]
+                z_masked = m * z
+                s = self.s_net.forward(sp, z_masked) * (1.0 - m)
+                t = self.t_net.forward(tp, z_masked) * (1.0 - m)
+                z = (1.0 - m) * (z - t) * torch.exp(-s) + z_masked
+                log_det_J = log_det_J - torch.sum(s, dim=1)
+            return z, log_det_J
 
     def log_density(self, var_param, x):
         squeeze = x.dim() == 1
@@ -960,3 +968,63 @@ class NVPFlow(ApproximationFamily):
 
     def supports_pth_moment(self, p):
         return False
+
+
+class RealNVP(NVPFlow):
+    """RealNVP (Dinh, Sohl-Dickstein & Bengio, ICLR 2017) as an
+    :class:`NVPFlow` built from the dimension alone, with a start that
+    trains every layer.
+
+    ``n_couplings`` affine couplings alternate halves: coupling ``i``
+    conditions on the first ``dim // 2`` coordinates when ``i`` is even and
+    on the rest when it is odd. Its ``t`` and ``s`` nets are
+    :class:`NeuralNet` MLPs of shapes ``(dim, hidden[0]), ...,
+    (hidden[-1], dim)``, with ``activation`` between layers (``s`` ends in
+    tanh, ``t`` in the identity). The base is a standard normal
+    (:class:`MFGaussian` at zero parameters).
+
+    :meth:`init_param` is the identity map with live hidden layers: every
+    hidden layer's ``W`` is ``randn(m, n) / sqrt(m)`` and its ``b`` zero,
+    every last layer's ``W`` and ``b`` zero, so q starts as the base and
+    every layer has a gradient by the second step. The draws come from a
+    CPU ``torch.Generator`` seeded with ``init_seed``, in float64, coupling
+    by coupling, ``t`` before ``s``, layer by layer; the parameters are then
+    moved to the family's device and dtype. The start is drawn once and
+    each call returns a copy of it.
+    """
+
+    graph_safe = True
+
+    def __init__(self, dim, n_couplings=4, hidden=(512, 512), init_seed=0,
+                 activation=torch.tanh, mc_samples=10000, device="cuda", dtype=None):
+        dim, n_couplings = int(dim), int(n_couplings)
+        if dim < 2 or n_couplings < 1:
+            raise ValueError("RealNVP needs dim >= 2 and n_couplings >= 1")
+        widths = [dim, *(int(h) for h in hidden), dim]
+        shapes = list(zip(widths[:-1], widths[1:]))
+        prior = MFGaussian(dim, device=device, dtype=dtype)
+        first = torch.arange(dim) < dim // 2
+        mask = torch.stack([first if i % 2 == 0 else ~first for i in range(n_couplings)])
+        self.init_seed = int(init_seed)
+        self._start = None
+        super().__init__(shapes, shapes, mask.to(prior.dtype), prior, prior._zeros(2 * dim),
+                         dim, activation=activation, mc_samples=mc_samples)
+
+    def init_param(self):
+        if self._start is None:
+            self._start = self._draw_start()
+        return self._start.clone()
+
+    def _draw_start(self):
+        gen = torch.Generator().manual_seed(self.init_seed)
+        shapes = self.t_net._layers_shapes
+        parts = []
+        for _ in range(self._n_coupling):
+            for _net in ("t", "s"):
+                for idx, (m, n) in enumerate(shapes):
+                    if idx + 1 < len(shapes):
+                        W = torch.randn(m, n, generator=gen, dtype=torch.float64) / math.sqrt(m)
+                    else:
+                        W = torch.zeros(m, n, dtype=torch.float64)
+                    parts += [W.reshape(-1), torch.zeros(n, dtype=torch.float64)]
+        return torch.cat(parts).to(device=self.device, dtype=self.dtype)

@@ -1049,6 +1049,23 @@ class RAABBVI(FASO):
                            "c_hist", "stopping_crt")
     _RESUME_HISTS = _RESUME_HISTS_NONE + _RESUME_HISTS_INT + _RESUME_HISTS_FLOAT
 
+    def _one_round(self, K_max, objective, init_param, generator,
+                   progress_callback, resume_state, max_time):
+        """RAABBVI over a family with no closed-form KL: the rounds have
+        nothing to compare, so the run is one FASO round at the
+        constructor's rate, as in the reference. Its result is FASO's, with
+        what RAABBVI keeps a round in RAABBVI's form: ``k_conv`` and
+        ``k_Rhat`` are one-round lists, and ``resume_state`` holds the
+        round's FASO state under ``"flight"`` while the round can go on
+        (``None`` once FASO has stopped), which a later call resumes."""
+        flight = None if resume_state is None else resume_state["flight"]
+        res = super().optimize(K_max, objective, init_param, generator=generator,
+                               resume_state=flight, progress_callback=progress_callback,
+                               max_time=max_time)
+        return {**res, "k_conv": [res["k_conv"]], "k_Rhat": [res["k_Rhat"]],
+                "resume_state": (None if res["k_stopped"] is not None
+                                 else {"flight": res["resume_state"]})}
+
     def optimize(self, K_max, objective, init_param, generator=None,
                  progress_callback=None, resume_state=None, max_time=None):
         """Run RAABBVI. ``progress_callback(k, avg_loss)`` fires at every
@@ -1078,10 +1095,8 @@ class RAABBVI(FASO):
         if not objective.approx.supports_kl:
             print("WARNING: approximation family does not support KL. "
                   "Using FASO.", flush=True)
-            return super().optimize(K_max, objective, init_param,
-                                    generator=generator,
-                                    progress_callback=progress_callback,
-                                    max_time=max_time)
+            return self._one_round(K_max, objective, init_param, generator,
+                                   progress_callback, resume_state, max_time)
         hmc_generator = torch.Generator(init_param.device).manual_seed(
             generator.initial_seed())
         # the whole-run clock is read only under a budget, so the stubbed

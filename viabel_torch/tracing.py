@@ -35,6 +35,11 @@ that call. The spans and what each encloses:
     and the loss's copy. A replayed step opens none of the three above.
 ``viabel.step.capture``
     one capture of a step's CUDA graph, after the eager step it records.
+``viabel.flow.sample``, ``viabel.flow.log_density``
+    an :class:`~viabel_torch.NVPFlow`'s pass from latent to data
+    (``g``), and its pass from data to latent with the log-determinant
+    (``f``). Like every span inside a step, they open on eager steps, at a
+    graph's capture and in ``vi_diagnostics``, never on a replay.
 ``viabel.faso.rhat_dispatch``
     the R-hat statistics over the ring and the start of their copy to the
     host.
