@@ -332,7 +332,7 @@ def phase_stl(results):
     gen = torch.Generator("cuda").manual_seed(2)
     shapes = [(8, 3), (33, 17), (130, 5), (FLAGSHIP_DIM, 10), (FLAGSHIP_DIM, 40),
               (FLAGSHIP_DIM, 400), (1536, 16)]
-    timed = {(FLAGSHIP_DIM, 10), (FLAGSHIP_DIM, 40), (1536, 16)}
+    timed = {(FLAGSHIP_DIM, 10), (FLAGSHIP_DIM, 40), (FLAGSHIP_DIM, 400), (1536, 16)}
     for d, S in shapes:
         # tests/test_ops.py:59-72 recipe in float64
         theta = torch.randn((d, d), generator=gen, device="cuda", dtype=torch.float64)

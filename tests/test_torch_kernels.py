@@ -214,9 +214,15 @@ def _assert_solve_close(X, P, dtype):
         assert float((X - P).abs().max()) <= 1e-4 * float(P.abs().max())
 
 
-#: every edge of the kernel's 32-row panels (d) and column tiles (S)
+#: every edge of the kernel's 32-row panels (d) and column tiles (S): on an
+#: H100 (132 SMs) the launcher widens a tile from 1 to 2, 4 and 8 columns
+#: past S = 33, 66 and 132, and halves the blocks a cluster (8, 4, 2) as the
+#: tiles grow, the last switch past S = 264; one column past each switch
+#: leaves a ragged last tile
 STL_SHAPES = [(1, 1), (8, 3), (31, 16), (32, 17), (33, 1), (64, 40), (130, 5),
-              (999, 10), (1000, 10), (1000, 400), (1536, 16)]
+              (999, 10), (1000, 10), (1000, 33), (1000, 34), (1000, 40), (1000, 66),
+              (1000, 67), (1000, 132), (1000, 133), (1000, 160), (1000, 264),
+              (1000, 265), (1000, 400), (1000, 529), (1536, 16)]
 
 
 def _stl_theta(d, dtype, gen, device):
@@ -262,15 +268,19 @@ def test_stl_transpose_solve_kernel_large_diagonal_spread(cuda, d, S, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("d", [512, 513, 1024, 1025, 1536])
-def test_stl_transpose_solve_every_tile_width_matches_plain(cuda, d, dtype):
-    """Each (columns, rows a thread) the launcher picks from d and the type:
-    2 columns at one and two rows a thread, and at three 8 in float32 and 2
-    in float64; 37 columns leave a ragged last tile in each."""
+@pytest.mark.parametrize("d", [33, 64, 65, 224, 225, 512, 513, 1024, 1025, 1536])
+@pytest.mark.parametrize("S", [37, 529])
+def test_stl_transpose_solve_every_tile_width_matches_plain(cuda, d, S, dtype):
+    """Each cluster the launcher picks from d: a block a panel or more (2 to 8
+    blocks, doubling while each keeps two panels), and past 512 rows at least
+    two, a block holding at most 16 panels (S = 529: more tiles than SMs);
+    at 2 columns a tile (S = 37) and at 8 with a ragged last tile (S = 529).
+    d = 512 at S = 529 puts 16 panels in one block, the most shared memory
+    a block takes (78 KB in float64): their inverses stay in it."""
     dtype = getattr(torch, dtype)
-    gen = torch.Generator(cuda).manual_seed(d)
+    gen = torch.Generator(cuda).manual_seed(d + S)
     theta = _stl_theta(d, dtype, gen, cuda)
-    B = torch.randn(d, 37, generator=gen, device=cuda, dtype=dtype)
+    B = torch.randn(d, S, generator=gen, device=cuda, dtype=dtype)
     _assert_solve_close(ops.stl_transpose_solve(theta, B),
                         ops.stl_transpose_solve_plain(theta, B), dtype)
 

@@ -35,6 +35,7 @@ _SIGNATURES = {
     "viabel_ring_group_stats_f64": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     "viabel_stl_transpose_solve_f32": (_P, _P, _P) + (_I64,) * 6 + (_P,),
     "viabel_stl_transpose_solve_f64": (_P, _P, _P) + (_I64,) * 6 + (_P,),
+    "viabel_stl_transpose_solve_init": (),
     "viabel_tri_solve_f32": (_P, _P, _P) + (_I64,) * 6 + (ctypes.c_int, _P),
     "viabel_tri_solve_f64": (_P, _P, _P) + (_I64,) * 6 + (ctypes.c_int, _P),
     "viabel_wlr_hmc_f64": (_P,) * 7 + (_I64,) * 6 + (_F64,) * 4 + (_P,),
@@ -128,6 +129,9 @@ def load_library():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        # the STL solve's shared-memory allowance, set here and not at a
+        # first launch that a CUDA graph may be capturing
+        check(lib.viabel_stl_transpose_solve_init(), "viabel_stl_transpose_solve_init")
         info["path"] = str(out)
         _state["info"] = info
         _state["lib"] = lib
