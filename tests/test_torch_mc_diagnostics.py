@@ -14,7 +14,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import viabel_tpu.faso as jfaso  # noqa: E402
 import viabel_tpu.mc_diagnostics as jmc  # noqa: E402
-import viabel_torch.faso as tfaso  # noqa: E402
+import viabel_torch.detection as tdetection  # noqa: E402
 import viabel_torch.mc_diagnostics as tmc  # noqa: E402
 from viabel_torch.convert import ring_from_jax  # noqa: E402
 
@@ -113,7 +113,7 @@ def test_mcse_check_matches_jax(mf, t, w):
     mf_dim = d // 2 if mf else None
     eff_j, mcse_j = jfaso._mcse_check(jnp.asarray(packed), jnp.asarray(t),
                                       jnp.asarray(w), mf_dim)
-    eff_t, mcse_t = tfaso._mcse_check(ring, t, w, mf_dim, chunk=3)
+    eff_t, mcse_t = tdetection._mcse_check(ring, t, w, mf_dim, chunk=3)
     np.testing.assert_allclose(eff_t.numpy(), np.asarray(eff_j)[:d], rtol=1e-8)
     np.testing.assert_allclose(mcse_t.numpy(), np.asarray(mcse_j)[:d], rtol=1e-8)
     assert torch.isinf(eff_t[2]) and mcse_t[2] == 0.0

@@ -42,8 +42,11 @@ def test_vmem_solve_triangular_plain_matches_pallas(d, S, lower):
     want = np.asarray(jax_vmem(jnp.asarray(T), jnp.asarray(B), lower))
     got = ops.vmem_solve_triangular(torch.as_tensor(T), torch.as_tensor(B), lower)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-12)
-    # the other triangle is never read
+    # the other triangle is never read; junk is laid out in memory as T is
+    # (an upper T is a transpose), since the CPU solve's rounding depends on
+    # the layout and the check is exact
     junk = T + (np.triu(rng.randn(d, d), 1) if lower else np.tril(rng.randn(d, d), -1))
+    junk = np.asarray(junk, order="F" if np.isfortran(T) else "C")
     got_junk = ops.vmem_solve_triangular(torch.as_tensor(junk), torch.as_tensor(B), lower)
     np.testing.assert_array_equal(got_junk.numpy(), got.numpy())
 

@@ -36,7 +36,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import viabel_torch as vt  # noqa: E402
-from viabel_torch.faso import _mcse_check  # noqa: E402
+from viabel_torch.detection import _mcse_check  # noqa: E402
 from viabel_torch.mc_diagnostics import (ring_window_mean,  # noqa: E402
                                          split_rhat_ring_windows)
 

@@ -48,81 +48,25 @@ with ``device_put``).
 """
 
 import math
-import time
 from collections import defaultdict, deque
 
 import numpy as np
 import torch
 
+from .detection import (_candidate_windows, _CheckCadence, _detection_geometry,
+                        _events_array, _host_handle, _MCLadder, _mcse_check, _read_host,
+                        _recheck_scale, _restore_rounds_ladder, _rounds_ladder_state,
+                        _to_host_async)
 from .families import MFGaussian
-from .mc_diagnostics import (ess_and_mcse_windowed, ring_window_mean,
-                             split_rhat_ring_windows)
-from .ops.ringstats import colsum
+from .mc_diagnostics import ring_window_mean, split_rhat_ring_windows
 from .ops.wlr import wlr_hmc
 from .optimizers import (AveragedAdam, AveragedRMSProp, Optimizer, RMSProp,
                          StochasticGradientOptimizer, _GraphedStep, _obj_check_state,
                          _obj_init_state, default_generator, graph_refusal)
 from .tracing import span
-from .utils import Timer, check_device
+from .utils import Timer, _clone_state, _int_list, _now, _set_generator_state, check_device
 
 __all__ = ["FASO", "RAABBVI", "merge_resume_states"]
-
-# indirection so tests can stub the recheck-schedule clock deterministically
-_now = time.perf_counter
-
-def _clamp_stat(value):
-    """Plateau-tracker entries clamped to a large finite value (an
-    overflowing gate statistic reads as a plateau, as in the JAX package)."""
-    v = float(value)
-    return min(v, 1e300) if math.isfinite(v) else 1e300
-
-
-def _pad_tail(values, size):
-    """The last ``size`` entries, NaN-padded at the front to a fixed shape
-    (the JAX package's checkpoint layout)."""
-    out = np.full(max(size, 1), np.nan)
-    tail = list(values)[-size:]
-    if tail:
-        out[-len(tail):] = tail
-    return out
-
-
-def _pad_events(events, cap):
-    """``(iteration, new_S)`` rows padded to a fixed ``cap`` with -1 rows."""
-    out = np.full((max(cap, 1), 2), -1, dtype=np.int64)
-    if events:
-        rows = np.asarray(events, dtype=np.int64).reshape(-1, 2)[:cap]
-        out[:len(rows)] = rows
-    return out
-
-
-def _clone_state(state):
-    """A copy of a state dict's tensors (a step rule may write its state
-    in place, and a resume state must stay reusable)."""
-    return {k: v.clone() if isinstance(v, torch.Tensor) else v
-            for k, v in state.items()}
-
-
-def _set_generator_state(generator, state):
-    """Continue ``generator`` from a saved ``get_state()``. A CPU and a
-    CUDA generator keep states of different sizes, and one cannot seed
-    the other. The state is copied first: ``set_state`` reads a view
-    with a storage offset (a row of stacked states) from the wrong place
-    and can crash."""
-    state = torch.as_tensor(state, dtype=torch.uint8, device="cpu").clone()
-    if state.numel() != generator.get_state().numel():
-        raise ValueError(
-            "the resume_state's generator_state was taken from a generator on "
-            f"another device type than this {generator.device.type!r} one; pass "
-            "a generator on the device type of the run that saved it")
-    generator.set_state(state)
-
-
-def _int_list(x):
-    """A short integer vector of a resume state (a list, a numpy array or
-    a tensor on any device) as a list of ints."""
-    return [int(v) for v in torch.as_tensor(x).tolist()]
-
 
 def _resume_ring(rs, c0, c1, D, like):
     """Columns ``[c0, c1)`` of a FASO resume state's ``(R, D)`` ring, as a
@@ -203,134 +147,6 @@ def _agreed(objective, x):
     return x if agree is None else agree(x)
 
 
-def _largest_divisor_leq(n, cap):
-    for g in range(min(cap, n), 0, -1):
-        if n % g == 0:
-            return g
-    return 1
-
-
-def _detection_geometry(D, W_min, k_check, ESS_min, rhat_group,
-                        rhat_quantile, rhat_backoff, R_base):
-    """Validate the detection knobs and derive the geometry: check cadence
-    ``k_check``, the ESS floor, the R-hat group granularity ``G`` (a
-    divisor of ``k_check``), the group-quantized ring length ``R`` grown
-    from ``R_base``, and the quantile gate's allowed exceedance count.
-    Returns ``(k_check, ESS_min, G, R, rhat_allowed)``."""
-    k_check = int(W_min if k_check is None else k_check)
-    ESS_min = W_min // 8 if ESS_min is None else ESS_min
-    if rhat_group is not None and (int(rhat_group) <= 0
-                                   or k_check % int(rhat_group) != 0):
-        raise ValueError('"rhat_group" must be a positive divisor of '
-                         'k_check (checks happen at k_check multiples)')
-    G = (int(rhat_group) if rhat_group
-         else _largest_divisor_leq(k_check, max(1, min(64, W_min // 4))))
-    if rhat_quantile is not None and not 0.0 < float(rhat_quantile) < 1.0:
-        raise ValueError('"rhat_quantile" must be in (0, 1)')
-    if rhat_backoff is not None and float(rhat_backoff) <= 1.0:
-        raise ValueError('"rhat_backoff" must be greater than one')
-    R = max(int(R_base), 2 * int(W_min))
-    R = -(-R // G) * G  # round up to whole groups
-    rhat_allowed = (None if rhat_quantile is None
-                    else int((1.0 - float(rhat_quantile)) * D))
-    return k_check, ESS_min, G, R, rhat_allowed
-
-
-def _backoff_adjust(best_stat, check_interval, max_interval,
-                    rhat_backoff, rhat_threshold, rhat_allowed):
-    """The R-hat backoff cadence rule: far from the gate -> double the
-    check interval (capped at one ring length); within the margin -> full
-    cadence. Returns ``(check_interval, pull_next_check_forward)``."""
-    far_gate = float(rhat_backoff) * (
-        rhat_threshold if rhat_allowed is None else max(rhat_allowed, 1))
-    if best_stat > far_gate:
-        return min(check_interval * 2, max_interval), False
-    return 1, True
-
-
-def _candidate_windows(W_min, W_upper, G):
-    """Reference candidates linspace(W_min, 0.95k, 5), quantized to even
-    multiples of ``2 * G`` so every half-chain boundary lands on a group."""
-    cand = np.linspace(W_min, W_upper, num=5)
-    half = np.ceil(cand / (2 * G)).astype(int) * G
-    half = np.clip(half, G, (W_upper // (2 * G)) * G)
-    return np.unique(2 * half)
-
-
-def _recheck_scale(relative_opt_time, relative_mcse_time):
-    """Cost-aware MCSE recheck growth factor (reference 601-605)."""
-    ratio = relative_opt_time / max(relative_mcse_time, 1e-12)
-    return max(1.05, 1.0 + 1.0 / math.sqrt(1.0 + ratio))
-
-
-def _mcse_check(ring, t, w, mf_dim, chunk=8192, c0=0, gather=None):
-    """Windowed per-coordinate (ESS, MCSE) with the reference's MFGaussian
-    scaling and constant-coordinate handling (optimization.py:575-592).
-
-    For MFGaussian, ``mcse_mean = mcse_mu / exp(mean log_sigma)``;
-    constant coordinates (zero last-step difference) get ``ess = +inf,
-    mcse = 0``. The ring's columns are streamed ``chunk`` at a time, each
-    chunk gathered oldest-first over the window only, so the peak extra
-    memory is one ``(w, chunk)`` slab and its FFT, not a reordered copy of
-    the whole ring.
-
-    A column shard of the ring (``FASO(mesh=...)``) starts at global
-    column ``c0``; ``gather`` assembles the whole window mean from every
-    rank's, since a ``mu`` column's ``log_sigma`` column may lie on
-    another rank.
-    """
-    R, D = ring.shape
-    t, w = int(t), int(w)
-    idx = torch.as_tensor([(t - w + j) % R for j in range(w)],
-                          device=ring.device)
-    # a shard with no column (D == 0) has empty statistics
-    effs, mcses, means, diffs = ([ring.new_zeros(0)] for _ in range(4))
-    for j in range(0, D, chunk):
-        ordered = ring[idx, j:j + chunk]
-        eff_c, mcse_c = ess_and_mcse_windowed(ordered, w, chunk_size=chunk)
-        effs.append(eff_c)
-        mcses.append(mcse_c)
-        means.append(colsum(ordered) / w)
-        diffs.append(ordered[w - 2] - ordered[w - 1])
-    eff, mcse, mean_w, diff = (torch.cat(x) for x in (effs, mcses, means, diffs))
-    if mf_dim is not None:
-        # log_sigma coordinates occupy [dim, 2*dim); this shard's mu
-        # columns are its first n_mu
-        full_mean = mean_w if gather is None else gather(mean_w)
-        n_mu = max(0, min(mf_dim - c0, D))
-        mcse = torch.cat([mcse[:n_mu] / torch.exp(full_mean[c0 + mf_dim:c0 + mf_dim + n_mu]),
-                          mcse[n_mu:]])
-    const = diff == 0.0
-    eff = torch.where(const, torch.inf, eff)
-    mcse = torch.where(const, 0.0, mcse)
-    return eff, mcse
-
-
-def _to_host_async(x):
-    """Start a device-to-host copy of a small tensor; returns a handle for
-    :func:`_read_host`."""
-    if x.is_cuda:
-        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        host.copy_(x, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
-    return x, None
-
-
-def _read_host(handle):
-    host, event = handle
-    if event is not None:
-        event.synchronize()
-    return host.numpy()
-
-
-def _host_handle(array):
-    """A :func:`_read_host` handle of a verdict already on the host (one
-    carried in a resume state)."""
-    return torch.from_numpy(np.array(array)), None
-
-
 class FASO(Optimizer):
     """Fixed-learning-rate stochastic optimization with convergence
     detection (reference optimization.py:479-633).
@@ -395,14 +211,8 @@ class FASO(Optimizer):
                                 else int(mc_max_samples))
         self._mc_patience = int(mc_patience)
         self._mc_plateau_rtol = float(mc_plateau_rtol)
-        if self._mc_escalation is not None and self._mc_escalation <= 1.0:
-            raise ValueError('"mc_escalation" must be greater than one')
-        if self._mc_max_samples is not None and self._mc_max_samples <= 0:
-            raise ValueError('"mc_max_samples" must be positive')
-        if self._mc_patience < 2:
-            raise ValueError('"mc_patience" must be at least two')
-        if self._mc_plateau_rtol <= 0.0:
-            raise ValueError('"mc_plateau_rtol" must be greater than zero')
+        _MCLadder.check_args(self._mc_escalation, self._mc_max_samples,
+                             self._mc_patience, self._mc_plateau_rtol)
         if self._max_time is not None and self._max_time < 0:
             raise ValueError('"max_time" must be non-negative')
         if self._check_pipeline < 0:
@@ -544,29 +354,12 @@ class FASO(Optimizer):
         lr = float(self._sgo._learning_rate if learning_rate is None
                    else learning_rate)
 
-        mc_escalation = self._mc_escalation
-        mc_max = None
-        mc_event_cap = 1
-        if mc_escalation is not None:
-            S0 = getattr(objective, "num_mc_samples", None)
-            if S0 is None:
-                raise ValueError(
-                    "mc_escalation needs an objective exposing a settable "
-                    "num_mc_samples (got {})".format(type(objective).__name__))
-            # an objective with estimator state escalates too: the rung
-            # boundary re-derives its state at the new sample count
-            mc_stateful = bool(obj_state)
-            mc_max = (self._mc_max_samples if self._mc_max_samples is not None
-                      else 40 * int(S0))
-            # every escalation multiplies S by >= mc_escalation until the
-            # ceiling, so the event log is bounded by the geometric ladder
-            mc_event_cap = 1 + max(0, int(math.ceil(
-                math.log(max(mc_max / max(int(S0), 1), 1.0))
-                / math.log(mc_escalation) + 1e-9)))
-        mc_plateau = []       # failing R-hat stats since the last escalation
-        mc_plateau_mcse = []  # failing ring-capped MCSE/ESS gate ratios
-        mc_events = []        # (iteration, new_S) escalation records
-        mc_escalated_at = -1
+        # the ceiling and the event log are sized from the entry S
+        ladder = _MCLadder(objective, 1, self._mc_escalation, self._mc_max_samples,
+                           self._mc_patience, self._mc_plateau_rtol, flat=True)
+        # an objective with estimator state escalates too: the rung
+        # boundary re-derives its state at the new sample count
+        mc_stateful = bool(obj_state)
 
         history = defaultdict(list)
         iterate_average = var_param
@@ -582,12 +375,6 @@ class FASO(Optimizer):
         last_best_W = None  # best R-hat window at the most recent check
         total_opt_time = 0.0
         eff = mcse = None
-        # adaptive check cadence (rhat_backoff; interval in k_check units);
-        # interval_adjusted_at limits doubling to once per verdict
-        # dispatched under the current schedule
-        check_interval = 1
-        next_check_at = 0
-        interval_adjusted_at = -1
         pending = deque()
 
         if resume_state is not None:
@@ -604,24 +391,10 @@ class FASO(Optimizer):
             W_check = None if int(rs["W_check"]) < 0 else int(rs["W_check"])
             total_opt_time = float(rs["total_opt_time"])
             iterate_average = torch.as_tensor(rs["iterate_average"]).to(var_param)
-            check_interval = int(rs.get("check_interval", 1))
-            next_check_at = int(rs.get("next_check_at", 0))
-            interval_adjusted_at = int(rs.get("interval_adjusted_at", -1))
             pending.extend({"k": int(ck["k"]), "windows": np.asarray(ck["windows"]),
                             "r_hats": _host_handle(ck["r_hats"])}
                            for ck in rs.get("pending_checks", []))
-            if mc_escalation is not None:
-                rs_S = int(rs.get("mc_samples", -1))
-                if rs_S > 0:
-                    objective.num_mc_samples = rs_S
-                mc_escalated_at = int(rs.get("mc_escalated_at", -1))
-                mc_plateau = [float(v) for v in np.asarray(
-                    rs.get("mc_plateau", ())).ravel() if np.isfinite(v)]
-                mc_plateau_mcse = [float(v) for v in np.asarray(
-                    rs.get("mc_plateau_mcse", ())).ravel() if np.isfinite(v)]
-                mc_events = [(int(a), int(b)) for a, b in np.asarray(
-                    rs.get("mc_events", np.zeros((0, 2)))).reshape(-1, 2)
-                    if a >= 0]
+            ladder.restore(rs)
         if generator is None:
             generator = default_generator(var_param.device)
         if resume_state is not None and "generator_state" in resume_state:
@@ -632,8 +405,12 @@ class FASO(Optimizer):
         # dispatch; diagnostics mode reads them at once so per-check
         # histories match the reference exactly
         pipeline = 0 if diagnostics else self._check_pipeline
-        # backoff cap: consecutive checks stay within one ring length
-        max_interval = max(1, R // self._k_check)
+        # the adaptive check cadence; its backoff cap keeps consecutive
+        # checks within one ring length
+        cadence = _CheckCadence(self._rhat_backoff, self._rhat_threshold, rhat_allowed,
+                                max(1, R // self._k_check))
+        if resume_state is not None:
+            cadence.restore(resume_state)
         timed_out = False
         resumed_opt_time = total_opt_time
         mcse_time_total = 0.0
@@ -641,20 +418,13 @@ class FASO(Optimizer):
 
         def process_check(ck):
             nonlocal k_Rhat, k_conv, W_check, last_best_W, iterate_average
-            nonlocal check_interval, next_check_at, interval_adjusted_at
             with span("viabel.faso.rhat_readback"):
                 ck_k = int(ck["k"])
                 r_hats = _read_host(ck["r_hats"])
                 best = int(np.argmin(r_hats))
                 best_W = int(ck["windows"][best])
                 last_best_W = best_W
-                if self._rhat_backoff is not None and ck_k > interval_adjusted_at:
-                    check_interval, pull = _backoff_adjust(
-                        r_hats[best], check_interval, max_interval,
-                        self._rhat_backoff, self._rhat_threshold, rhat_allowed)
-                    if pull:
-                        next_check_at = 0
-                    interval_adjusted_at = k
+                cadence.adjust(r_hats[best], ck_k, k)
                 # max mode: r_hats are max-R-hat values, gated by threshold;
                 # quantile mode: above-threshold coordinate counts
                 passed = bool(r_hats[best] <= (self._rhat_threshold
@@ -674,52 +444,34 @@ class FASO(Optimizer):
                     k_Rhat = ck_k
                     k_conv = ck_k - best_W
                     W_check = best_W  # immediately check MCSE
-                elif (mc_escalation is not None and ck_k > mc_escalated_at
-                        and int(objective.num_mc_samples) < mc_max):
+                else:
                     # gradient-SNR escalation: the gate is failing and the best
-                    # statistic has stopped improving (verdicts dispatched
-                    # before the last escalation may pass but never trigger)
-                    mc_plateau.append(_clamp_stat(r_hats[best]))
-                    if _plateaued(mc_plateau):
-                        escalate(mc_plateau[-1])
+                    # statistic has stopped improving
+                    ladder.track_rhat(0, ck_k, r_hats[best])
+                    escalate_if_stalled()
                 return passed
 
-        def _plateaued(stats):
-            if len(stats) < self._mc_patience:
-                return False
-            w = stats[-self._mc_patience:]
-            return w[0] - w[-1] < self._mc_plateau_rtol * abs(w[0])
-
-        def escalate(stat):
-            nonlocal mc_escalated_at, check_interval, obj_state
-            nonlocal next_check_at, interval_adjusted_at, W_check
+        def escalate_if_stalled():
+            nonlocal obj_state, W_check
+            stats = ladder.stalled([0], [k_conv is not None])
+            if stats is None:
+                return
             with span("viabel.faso.escalate"):
-                new_S = min(int(math.ceil(objective.num_mc_samples
-                                          * mc_escalation)), mc_max)
-                objective.num_mc_samples = new_S
-                # the S in use: a sharded objective rounds a rung up to a
-                # multiple of its axis size
-                new_S = int(objective.num_mc_samples)
+                new_S = ladder.climb(k)
                 if mc_stateful:
                     # re-derive the threaded estimator state at the new count
                     resize = getattr(objective, "resize_obj_state", None)
                     obj_state = (resize(obj_state, var_param) if resize is not None
                                  else _obj_init_state(objective, var_param))
-                mc_escalated_at = k
-                mc_events.append((k, new_S))
-                mc_plateau.clear()
-                mc_plateau_mcse.clear()
                 # watch the new noise regime at full cadence
-                check_interval = 1
-                next_check_at = 0
-                interval_adjusted_at = k
+                cadence.reset(k)
                 if k_conv is not None:
                     # the MCSE recheck schedule was calibrated to the old noise
                     # regime: recheck one W_min after the escalation instead
                     W_check = (k - k_conv) + self._W_min
                 print("MC escalation: convergence gate stalled at {:.3g}; "
                       "num_mc_samples -> {} at iteration {}".format(
-                          float(stat), new_S, k))
+                          float(stats[0]), new_S, k))
 
         while k < n_iters:
             # the wall-clock budget is enforced at segment boundaries, so a
@@ -749,10 +501,10 @@ class FASO(Optimizer):
             # R-hat convergence check (reference optimization.py:550-563):
             # launch the one-ring-read statistic now, read the verdict
             # `pipeline` segments later
-            if k_conv is None and k % self._k_check == 0 and k >= next_check_at:
+            if k_conv is None and k % self._k_check == 0 and cadence.due(k):
                 W_upper = min(int(0.95 * k), R)
                 if W_upper > self._W_min and W_upper >= 2 * G:
-                    next_check_at = k + self._k_check * check_interval
+                    cadence.dispatched(k, self._k_check)
                     windows = _candidate_windows(self._W_min, W_upper, G)
                     with span("viabel.faso.rhat_dispatch"):
                         r_hats = ring_rhats(windows)
@@ -809,15 +561,10 @@ class FASO(Optimizer):
                 if mcse_stat < mcse_threshold and ess_stat > self._ESS_min:
                     k_stopped = k
                     break
-                if (mc_escalation is not None and W >= R
-                        and int(objective.num_mc_samples) < mc_max):
-                    # the averaging window is ring-capped: a stalled
-                    # MCSE/ESS gate here is a gradient-SNR wall like a
-                    # stalled R-hat gate (evaluated after the recheck
-                    # growth below, so its recheck reset wins)
-                    mc_plateau_mcse.append(_clamp_stat(
-                        max(mcse_stat / mcse_threshold,
-                            self._ESS_min / max(ess_stat, 1e-300))))
+                # (the climb is decided after the recheck growth below, so
+                # its recheck reset wins)
+                ladder.track_mcse(0, W >= R, mcse_stat, mcse_threshold, ess_stat,
+                                  self._ESS_min)
                 # cost-aware recheck growth (reference 601-605);
                 # optimization time is wall-clock minus check time
                 total_opt_time = resumed_opt_time + max(
@@ -825,8 +572,7 @@ class FASO(Optimizer):
                 W_check = int(agreed(int(
                     _recheck_scale(total_opt_time / k, mcse_timer.interval / W)
                     * W_check + 1)))
-                if _plateaued(mc_plateau_mcse):
-                    escalate(mc_plateau_mcse[-1])
+                escalate_if_stalled()
 
         total_opt_time = resumed_opt_time + (_now() - loop_start - mcse_time_total)
 
@@ -838,22 +584,12 @@ class FASO(Optimizer):
             "k_conv": -1 if k_conv is None else k_conv,
             "k_Rhat": -1 if k_Rhat is None else k_Rhat,
             "W_check": -1 if W_check is None else W_check,
-            "check_interval": check_interval,
-            "next_check_at": next_check_at,
-            "interval_adjusted_at": interval_adjusted_at,
+            **cadence.state(),
             "iterate_average": iterate_average,
             "pending_checks": [
                 {"k": int(ck["k"]), "windows": np.asarray(ck["windows"]),
                  "r_hats": _read_host(ck["r_hats"])} for ck in pending],
-            "mc_samples": (int(objective.num_mc_samples)
-                           if mc_escalation is not None else -1),
-            "mc_escalated_at": mc_escalated_at,
-            # fixed-size encodings, as the JAX package writes them: the
-            # plateau trackers keep their last mc_patience entries, the
-            # event log pads to its configuration-bounded maximum
-            "mc_plateau": _pad_tail(mc_plateau, self._mc_patience),
-            "mc_plateau_mcse": _pad_tail(mc_plateau_mcse, self._mc_patience),
-            "mc_events": _pad_events(mc_events, mc_event_cap),
+            **ladder.state(),
         }
         while pending:
             if process_check(pending.popleft()):
@@ -897,9 +633,8 @@ class FASO(Optimizer):
         results["k_Rhat"] = k_Rhat
         results["k_stopped"] = k_stopped
         results["timed_out"] = timed_out
-        if mc_escalation is not None:
-            results["mc_escalation_history"] = np.asarray(
-                mc_events, dtype=np.int64).reshape(-1, 2)
+        if ladder.escalation is not None:
+            results["mc_escalation_history"] = _events_array(ladder.events)
         results["opt_param"] = iterate_average
         results["opt_state"] = opt_state
         results["resume_state"] = {
@@ -1166,13 +901,7 @@ class RAABBVI(FASO):
             if self._mc_escalation is not None:
                 # a resume between rounds re-arms the escalated sample count
                 # (inside a round, the flight's FASO state carries it)
-                rs_S = int(rs.get("mc_samples", -1))
-                if rs_S > 0:
-                    objective.num_mc_samples = rs_S
-                mc_events_outer = [
-                    (int(a), int(b)) for a, b in np.asarray(
-                        rs.get("mc_events_outer", np.zeros((0, 2)))).reshape(-1, 2)
-                    if a >= 0]
+                mc_events_outer = _restore_rounds_ladder(rs, objective)
             # the budget left for the stopped (or next) round: what an
             # uninterrupted run with this K_max would have given it
             K_max -= budget_spent
@@ -1208,10 +937,7 @@ class RAABBVI(FASO):
                 "iterate_average_curr_hist": torch.stack(
                     history["iterate_average_curr_hist"]),
                 "hists": hists,
-                "mc_samples": (int(objective.num_mc_samples)
-                               if self._mc_escalation is not None else -1),
-                "mc_events_outer": _pad_events(
-                    mc_events_outer, max(len(mc_events_outer), 1)),
+                **_rounds_ladder_state(objective, self._mc_escalation, mc_events_outer),
             }
 
         while not stopped and not budget_spent_on_resume:
@@ -1376,8 +1102,7 @@ class RAABBVI(FASO):
         results["k_stopped_final"] = k_stopped_final
         results["timed_out"] = timed_out
         if self._mc_escalation is not None:
-            results["mc_escalation_history"] = np.asarray(
-                mc_events_outer, dtype=np.int64).reshape(-1, 2)
+            results["mc_escalation_history"] = _events_array(mc_events_outer)
         results["k_Rhat"] = history["k_Rhat"]
         results["k_mcse"] = history["k_mcse"]
         results["k_conv"] = history["k_conv"]

@@ -42,15 +42,14 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..faso import (_backoff_adjust, _candidate_windows, _clamp_stat, _clone_state,
-                    _detection_geometry, _host_handle, _int_list, _mcse_check, _now,
-                    _pad_events, _pad_tail, _read_host, _recheck_scale,
-                    _set_generator_state, _to_host_async)
+from ..detection import (_candidate_windows, _CheckCadence, _detection_geometry,
+                         _events_array, _host_handle, _MCLadder, _mcse_check, _read_host,
+                         _recheck_scale, _to_host_async)
 from ..families import MFGaussian
 from ..mc_diagnostics import ring_window_mean, split_rhat_ring_windows
 from ..optimizers import (StochasticGradientOptimizer, _obj_check_state, _obj_init_state,
                           default_generator)
-from ..utils import Timer
+from ..utils import Timer, _clone_state, _int_list, _now, _set_generator_state
 from .mesh import restart_axis_of
 
 __all__ = ["multistart_faso", "restart_generators"]
@@ -416,32 +415,9 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
                             restarts=restarts)
     local = engine.local
     stateful = engine.stateful
-    mc_escalation = None if mc_escalation is None else float(mc_escalation)
-    mc_max = None
-    mc_event_cap = 1
-    if mc_escalation is not None:
-        if mc_escalation <= 1.0:
-            raise ValueError('"mc_escalation" must be greater than one')
-        if int(mc_patience) < 2:
-            raise ValueError('"mc_patience" must be at least two')
-        if float(mc_plateau_rtol) <= 0.0:
-            raise ValueError('"mc_plateau_rtol" must be greater than zero')
-        S0 = getattr(objective, "num_mc_samples", None)
-        if S0 is None:
-            raise ValueError(
-                "mc_escalation needs an objective exposing a settable "
-                "num_mc_samples (got {})".format(type(objective).__name__))
-        if mc_max_samples is not None and int(mc_max_samples) <= 0:
-            raise ValueError('"mc_max_samples" must be positive')
-        mc_max = int(mc_max_samples) if mc_max_samples is not None else 40 * int(S0)
-        mc_event_cap = 1 + max(0, int(np.ceil(
-            np.log(max(mc_max / max(int(S0), 1), 1.0)) / np.log(mc_escalation) + 1e-9)))
-    mc_patience = int(mc_patience)
-    mc_plateau_rtol = float(mc_plateau_rtol)
-    mc_plateau_r = [[] for _ in range(B)]  # failing R-hat stats per restart
-    mc_plateau_m = [[] for _ in range(B)]  # ring-capped MCSE/ESS gate ratios
-    mc_events = []
-    mc_escalated_at = -1
+    # the ceiling and the event log are sized from the entry S
+    ladder = _MCLadder(objective, B, mc_escalation, mc_max_samples, mc_patience,
+                       mc_plateau_rtol)
 
     var_params = list(init_params.clone())
     opt_states = ([sgo.init_state(vp) for vp in var_params] if init_opt_states is None
@@ -478,10 +454,6 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
     pending = deque()
     mcse_time_total = 0.0
     resumed_opt_time = 0.0
-    # the shared adaptive check cadence (FASO's rhat_backoff)
-    check_interval = 1
-    next_check_at = 0
-    interval_adjusted_at = -1
 
     if resume_state is not None:
         rs = resume_state
@@ -520,23 +492,13 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
         pending.extend({"k": int(ck["k"]), "windows": np.asarray(ck["windows"]),
                         "r_hats": _host_handle(ck["r_hats"])}
                        for ck in rs["pending_checks"])
-        check_interval = int(rs["check_interval"])
-        next_check_at = int(rs["next_check_at"])
-        interval_adjusted_at = int(rs["interval_adjusted_at"])
         resumed_opt_time = float(rs["total_opt_time"])
-        if mc_escalation is not None:
-            rs_S = int(rs["mc_samples"])
-            if rs_S > 0:
-                objective.num_mc_samples = rs_S
-            mc_escalated_at = int(rs["mc_escalated_at"])
-            mc_plateau_r = [[float(v) for v in row if np.isfinite(v)]
-                            for row in np.asarray(rs["mc_plateau_r"])]
-            mc_plateau_m = [[float(v) for v in row if np.isfinite(v)]
-                            for row in np.asarray(rs["mc_plateau_m"])]
-            mc_events = [(int(a), int(b)) for a, b in np.asarray(
-                rs["mc_events"]).reshape(-1, 2) if a >= 0]
+        ladder.restore(rs)
     run = _RunState(var_params, opt_states, obj_states, generators, rings, lr, t)
-    max_interval = max(1, R // k_check)
+    # the shared adaptive check cadence (FASO's rhat_backoff)
+    cadence = _CheckCadence(rhat_backoff, rhat_threshold, rhat_allowed, max(1, R // k_check))
+    if resume_state is not None:
+        cadence.restore(resume_state)
     if diagnostics:
         # the 0-entry records the caller's init_params (FASO's trail starts
         # with init_param, also on resume)
@@ -544,42 +506,19 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
         iter_avg_hist.append(init_params.clone())
     loop_start = _now()
 
-    def _plateaued(stats):
-        if len(stats) < mc_patience:
-            return False
-        w = stats[-mc_patience:]
-        return w[0] - w[-1] < mc_plateau_rtol * abs(w[0])
-
     def maybe_escalate():
         # num_mc_samples is shared, so the rung climbs only when EVERY
         # still-running restart's binding gate statistic has plateaued
-        nonlocal mc_escalated_at, check_interval, next_check_at, interval_adjusted_at
-        if mc_escalation is None or int(objective.num_mc_samples) >= mc_max:
-            return
         live = [b for b in range(B) if k_stopped[b] < 0]
-        if not live:
+        stats = ladder.stalled(live, k_conv >= 0)
+        if stats is None:
             return
-        stats = []
-        for b in live:
-            tr = mc_plateau_r[b] if k_conv[b] < 0 else mc_plateau_m[b]
-            if not _plateaued(tr):
-                return
-            stats.append(tr[-1])
-        new_S = min(int(np.ceil(objective.num_mc_samples * mc_escalation)), mc_max)
-        objective.num_mc_samples = new_S
-        new_S = int(objective.num_mc_samples)  # as rounded by a sharded objective
+        new_S = ladder.climb(k)
         if stateful:
             run.obj_states = engine.resize_obj_states(run.obj_states, run.var_params)
-        mc_escalated_at = k
-        mc_events.append((k, new_S))
-        for b in range(B):
-            mc_plateau_r[b].clear()
-            mc_plateau_m[b].clear()
         # watch the new noise regime at full cadence; converged restarts
         # recheck one W_min after the climb
-        check_interval = 1
-        next_check_at = 0
-        interval_adjusted_at = k
+        cadence.reset(k)
         for b in live:
             if k_conv[b] >= 0:
                 W_check[b] = (k - k_conv[b]) + W_min
@@ -587,7 +526,6 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
               "num_mc_samples -> {} at iteration {}".format(max(stats), new_S, k))
 
     def process_check(ck, final=False):
-        nonlocal check_interval, next_check_at, interval_adjusted_at
         ck_k = int(ck["k"])
         r_hats = _read_host(ck["r_hats"])          # (B, K)
         windows = np.asarray(ck["windows"])
@@ -627,18 +565,10 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
                     # once, which overwrites it
                     w_eff = min(int(windows[best]) + (k - ck_k), R, k)
                     last_checked_avg[b] = engine.mean_of(b, run.rings, run.t, w_eff)
-            elif (mc_escalation is not None and ck_k > mc_escalated_at
-                    and int(objective.num_mc_samples) < mc_max):
-                # verdicts dispatched before the last climb may pass but
-                # never track
-                mc_plateau_r[b].append(_clamp_stat(r_hats[b, best]))
-        if rhat_backoff is not None and best_stats and ck_k > interval_adjusted_at:
-            check_interval, pull = _backoff_adjust(
-                min(best_stats), check_interval, max_interval, rhat_backoff,
-                rhat_threshold, rhat_allowed)
-            if pull:
-                next_check_at = 0
-            interval_adjusted_at = k
+            else:
+                ladder.track_rhat(b, ck_k, r_hats[b, best])
+        if best_stats:
+            cadence.adjust(min(best_stats), ck_k, k)
 
     timed_out = False
     while k < n_iters and not np.all(k_stopped >= 0):
@@ -658,10 +588,10 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
             grad_hist.append(grads)
             dir_hist.append(dirs)
 
-        if np.any(k_conv < 0) and k % k_check == 0 and k >= next_check_at:
+        if np.any(k_conv < 0) and k % k_check == 0 and cadence.due(k):
             W_upper = min(int(0.95 * k), R)
             if W_upper > W_min and W_upper >= 2 * G:
-                next_check_at = k + k_check * check_interval
+                cadence.dispatched(k, k_check)
                 windows = _candidate_windows(W_min, W_upper, G)
                 pending.append({"k": k, "windows": windows,
                                 "r_hats": _to_host_async(
@@ -710,13 +640,8 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
                     opt_stop_rows[b] = _clone_state(run.opt_states[b])
                 else:
                     last_checked_avg[b] = avgs[b]
-                    if (mc_escalation is not None and int(W[b]) >= R
-                            and int(objective.num_mc_samples) < mc_max):
-                        # a ring-capped window: a stalled MCSE/ESS gate
-                        # here is an SNR wall (FASO's rule, per restart)
-                        mc_plateau_m[b].append(_clamp_stat(
-                            max(mcse_stat / mcse_thresholds[b],
-                                ESS_min / max(ess_stat, 1e-300))))
+                    ladder.track_mcse(b, int(W[b]) >= R, mcse_stat, mcse_thresholds[b],
+                                      ess_stat, ESS_min)
                     total_opt = resumed_opt_time + max(
                         engine.agree(_now() - loop_start) - mcse_time_total, 1e-9)
                     W_check[b] = int(_recheck_scale(
@@ -759,18 +684,10 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
         "checked_mask": np.array([a is not None for a in last_checked_avg]),
         "pending_checks": [{"k": int(ck["k"]), "windows": np.asarray(ck["windows"]),
                             "r_hats": _read_host(ck["r_hats"])} for ck in pending],
-        "check_interval": check_interval,
-        "next_check_at": next_check_at,
-        "interval_adjusted_at": interval_adjusted_at,
+        **cadence.state(),
         "total_opt_time": resumed_opt_time + (engine.agree(_now() - loop_start)
                                               - mcse_time_total),
-        # fixed-size escalation-state encodings, as FASO writes them
-        "mc_samples": (int(objective.num_mc_samples)
-                       if mc_escalation is not None else -1),
-        "mc_escalated_at": mc_escalated_at,
-        "mc_plateau_r": np.stack([_pad_tail(tr, mc_patience) for tr in mc_plateau_r]),
-        "mc_plateau_m": np.stack([_pad_tail(tr, mc_patience) for tr in mc_plateau_m]),
-        "mc_events": _pad_events(mc_events, mc_event_cap),
+        **ladder.state(),
     }
     while pending:
         process_check(pending.popleft(), final=True)
@@ -814,9 +731,8 @@ def multistart_faso(sgo, n_iters, objective, init_params, generator=None, *,
         "opt_states_at_stop": opt_states_at_stop,
         "resume_state": resume_snapshot,
     }
-    if mc_escalation is not None:
-        results["mc_escalation_history"] = np.asarray(
-            mc_events, dtype=np.int64).reshape(-1, 2)
+    if ladder.escalation is not None:
+        results["mc_escalation_history"] = _events_array(ladder.events)
     if stateful:
         results["obj_state_errors"] = engine.gather_list(obj_errors)
     if diagnostics:

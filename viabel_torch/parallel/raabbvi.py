@@ -39,12 +39,13 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..faso import (RAABBVI, _backoff_adjust, _candidate_windows, _clamp_stat,
-                    _clone_state, _detection_geometry, _host_handle, _now, _pad_events,
-                    _pad_tail, _read_host, _recheck_scale, _set_generator_state,
-                    _to_host_async)
+from ..detection import (_candidate_windows, _CheckCadence, _detection_geometry,
+                         _events_array, _events_of, _host_handle, _MCLadder, _read_host,
+                         _recheck_scale, _restore_rounds_ladder, _rounds_ladder_state,
+                         _to_host_async)
+from ..faso import RAABBVI
 from ..optimizers import RMSProp, StochasticGradientOptimizer
-from ..utils import Timer
+from ..utils import Timer, _clone_state, _now, _set_generator_state
 from .mesh import restart_axis_of
 from .multistart import (_BatchedEngine, _gather_owned, _resume_rings, _ring_span,
                          _RunState, multistart_faso, restart_generators)
@@ -120,17 +121,12 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
     if schedule not in ("lockstep", "async"):
         raise ValueError('"schedule" must be "lockstep" or "async"')
     if mc_escalation is not None:
-        # both schedules raise here, also with an explicit mc_max_samples
-        # (where the JAX package's async leg meets an AttributeError)
-        S0 = getattr(objective, "num_mc_samples", None)
-        if S0 is None:
-            raise ValueError(
-                "mc_escalation needs an objective exposing a settable "
-                "num_mc_samples (got {})".format(type(objective).__name__))
-        if mc_max_samples is None:
-            # pin the ceiling to the run's entry sample count: each round
-            # would otherwise re-derive 40 * (current S)
-            mc_max_samples = 40 * int(S0)
+        # pin the ceiling to the run's entry sample count: each round would
+        # otherwise re-derive 40 * (current S). Both schedules raise here for
+        # an objective with no sample count, also with an explicit
+        # mc_max_samples (where the JAX package's async leg meets an
+        # AttributeError)
+        mc_max_samples = _MCLadder.pinned_ceiling(objective, mc_max_samples)
     init_params = torch.as_tensor(init_params).detach()
     B, D = init_params.shape
     K_max = int(K_max)
@@ -247,11 +243,7 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
         budget_overrun = np.asarray(rs["budget_overrun"]).copy()
         if mc_escalation is not None:
             # re-arm the escalated sample count and the event log
-            rs_S = int(rs["mc_samples"])
-            if rs_S > 0:
-                objective.num_mc_samples = rs_S
-            mc_events_outer = [(int(a), int(b)) for a, b in np.asarray(
-                rs["mc_events_outer"]).reshape(-1, 2) if a >= 0]
+            mc_events_outer = _restore_rounds_ladder(rs, objective)
 
     def outer_snapshot():
         """Round-boundary state (ragged per-restart histories are lists of
@@ -279,10 +271,7 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
             "c_hist": [list(h) for h in c_hist],
             "predicted_iters_hist": [list(h) for h in pred_hist],
             "stopping_crt": [list(h) for h in crt_hist],
-            "mc_samples": (int(objective.num_mc_samples)
-                           if mc_escalation is not None else -1),
-            "mc_events_outer": _pad_events(mc_events_outer,
-                                           max(len(mc_events_outer), 1)),
+            **_rounds_ladder_state(objective, mc_escalation, mc_events_outer),
         }
 
     detection_kwargs = dict(
@@ -428,8 +417,7 @@ def multistart_raabbvi(sgo, K_max, objective, init_params, generator=None, *,
         "resume_state": snapshot,
     }
     if mc_escalation is not None:
-        results["mc_escalation_history"] = np.asarray(
-            mc_events_outer, dtype=np.int64).reshape(-1, 2)
+        results["mc_escalation_history"] = _events_array(mc_events_outer)
     return results
 
 
@@ -503,8 +491,7 @@ def _async_warm_prelude(sgo, K_max, objective, init_params, generators, hmc_gene
                           mc_patience=mc_patience, mc_plateau_rtol=mc_plateau_rtol)
     # the warm round starts the global step axis, so its ladder events
     # carry over unshifted; the climbed S persists on the objective
-    mc_events = [(int(a), int(b)) for a, b in np.asarray(
-        opt.get("mc_escalation_history", np.zeros((0, 2)))).reshape(-1, 2)]
+    mc_events = _events_of(opt.get("mc_escalation_history", np.zeros((0, 2))))
     # the warm round's steps, those before a resume included (the JAX
     # package counts only the steps after it)
     round_len = int(opt["value_history"].shape[1]) + (0 if flight is None
@@ -530,8 +517,7 @@ def _async_warm_prelude(sgo, K_max, objective, init_params, generators, hmc_gene
                      "c_hist", "predicted_iters_hist", "stopping_crt"):
             out[name] = _empty_hists(B)
         if mc_escalation is not None:
-            out["mc_escalation_history"] = np.asarray(mc_events,
-                                                      dtype=np.int64).reshape(-1, 2)
+            out["mc_escalation_history"] = _events_array(mc_events)
         return out
 
     # per-restart round-one bookkeeping (single-run RAABBVI's first round:
@@ -667,30 +653,9 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
     kappa_hist, c_hist, pred_hist, crt_hist = (_empty_hists(B), _empty_hists(B),
                                                _empty_hists(B), _empty_hists(B))
 
-    mc_escalation = None if mc_escalation is None else float(mc_escalation)
-    mc_max = None
-    if mc_escalation is not None:
-        if mc_escalation <= 1.0:
-            raise ValueError('"mc_escalation" must be greater than one')
-        if int(mc_patience) < 2:
-            raise ValueError('"mc_patience" must be at least two')
-        if float(mc_plateau_rtol) <= 0.0:
-            raise ValueError('"mc_plateau_rtol" must be greater than zero')
-        if int(mc_max_samples) <= 0:
-            raise ValueError('"mc_max_samples" must be positive')
-        mc_max = int(mc_max_samples)
-    mc_patience = int(mc_patience)
-    mc_plateau_rtol = float(mc_plateau_rtol)
-    mc_plateau_r = _empty_hists(B)  # failing R-hat stats, round-local
-    mc_plateau_m = _empty_hists(B)  # ring-capped MCSE/ESS gate ratios
-    mc_events = []
-    mc_escalated_at = -1
-
-    def _plateaued(stats):
-        if len(stats) < mc_patience:
-            return False
-        w = stats[-mc_patience:]
-        return w[0] - w[-1] < mc_plateau_rtol * abs(w[0])
+    # one S for the batch; the trackers are round-local
+    ladder = _MCLadder(objective, B, mc_escalation, mc_max_samples, mc_patience,
+                       mc_plateau_rtol)
 
     k_offset = 0  # the warm prelude's steps, counted into k_global_steps
     if prelude_state is not None:
@@ -703,8 +668,7 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
         lr_hist = [list(h) for h in ps["lr_hist"]]
         init_params = ps["var_params"]
         k_offset = int(ps["k_global_offset"])
-        if mc_escalation is not None:
-            mc_events = list(ps["mc_events"])
+        ladder.events = list(ps["mc_events"])
 
     obj_errors = [None] * B
     k = 0
@@ -729,10 +693,7 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
     frozen = [None] * B           # round average at a restart's MCSE stop
     last_checked_avg = [None] * B
     pending = deque()
-    check_interval = 1
-    next_check_at = 0
-    interval_adjusted_at = -1
-    max_interval = max(1, R // k_check)
+    cadence = _CheckCadence(rhat_backoff, rhat_threshold, rhat_allowed, max(1, R // k_check))
     mcse_time_total = 0.0
     loop_start = _now()
 
@@ -774,9 +735,7 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
         k_stopped = np.asarray(rs["k_stopped"]).copy()
         W_check = np.asarray(rs["W_check"]).copy()
         last_best_W = np.asarray(rs["last_best_W"]).copy()
-        check_interval = int(rs["check_interval"])
-        next_check_at = int(rs["next_check_at"])
-        interval_adjusted_at = int(rs["interval_adjusted_at"])
+        cadence.restore(rs)
         mcse_time_total = float(rs["mcse_time_total"])
         # the elapsed optimization time carries over, so the recheck cost
         # model stays continuous
@@ -793,17 +752,7 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
         c_hist = [[float(v) for v in h] for h in rs["c_hist"]]
         pred_hist = [[int(v) for v in h] for h in rs["predicted_iters_hist"]]
         crt_hist = [[float(v) for v in h] for h in rs["stopping_crt"]]
-        if mc_escalation is not None:
-            rs_S = int(rs["mc_samples"])
-            if rs_S > 0:
-                objective.num_mc_samples = rs_S
-            mc_escalated_at = int(rs["mc_escalated_at"])
-            mc_plateau_r = [[float(v) for v in row if np.isfinite(v)]
-                            for row in np.asarray(rs["mc_plateau_r"])]
-            mc_plateau_m = [[float(v) for v in row if np.isfinite(v)]
-                            for row in np.asarray(rs["mc_plateau_m"])]
-            mc_events = [(int(a), int(b)) for a, b in np.asarray(
-                rs["mc_events"]).reshape(-1, 2) if a >= 0]
+        ladder.restore(rs)
     # lr is shared with the run state: round advances and retirements
     # write it in place
     run = _RunState(var_params, opt_states, obj_states, generators, rings, lr, t,
@@ -811,11 +760,7 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
 
     # the events held plus every climb still possible from the current S,
     # sized after the prelude and resume restores
-    mc_event_cap = 1
-    if mc_escalation is not None:
-        S_entry = max(int(objective.num_mc_samples), 1)
-        mc_event_cap = len(mc_events) + 1 + max(0, int(np.ceil(
-            np.log(max(mc_max / S_entry, 1.0)) / np.log(mc_escalation) + 1e-9)))
+    ladder.size_log(held=len(ladder.events))
 
     def outer_snapshot(copy_rings):
         """The continuous program at a segment boundary. Mid-run the rings
@@ -850,9 +795,7 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
             "frozen": list(frozen), "last_checked_avg": list(last_checked_avg),
             "k_conv": k_conv.copy(), "k_stopped": k_stopped.copy(),
             "W_check": W_check.copy(), "last_best_W": last_best_W.copy(),
-            "check_interval": check_interval,
-            "next_check_at": next_check_at,
-            "interval_adjusted_at": interval_adjusted_at,
+            **cadence.state(),
             "mcse_time_total": mcse_time_total,
             "opt_elapsed": engine.agree(_now() - loop_start),
             "pending_checks": [{"k": int(ck["k"]), "windows": ck["windows"],
@@ -865,19 +808,13 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
             "c_hist": [list(h) for h in c_hist],
             "predicted_iters_hist": [list(h) for h in pred_hist],
             "stopping_crt": [list(h) for h in crt_hist],
-            "mc_samples": (int(objective.num_mc_samples)
-                           if mc_escalation is not None else -1),
-            "mc_escalated_at": mc_escalated_at,
-            "mc_plateau_r": np.stack([_pad_tail(tr, mc_patience) for tr in mc_plateau_r]),
-            "mc_plateau_m": np.stack([_pad_tail(tr, mc_patience) for tr in mc_plateau_m]),
-            "mc_events": _pad_events(mc_events, mc_event_cap),
+            **ladder.state(),
         }
 
     def ring_clock(b):
         return int(k - round_start[b])
 
     def process_check(ck):
-        nonlocal check_interval, next_check_at, interval_adjusted_at
         r_hats = _read_host(ck["r_hats"])          # (B, K)
         windows = ck["windows"]                    # the padded union
         best_stats = []
@@ -896,18 +833,10 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
             if r[best] <= gate:
                 k_conv[b] = int(ck["k"]) - round_start[b] - int(windows[best])
                 W_check[b] = int(windows[best])
-            elif (mc_escalation is not None and int(ck["k"]) > mc_escalated_at
-                    and int(objective.num_mc_samples) < mc_max):
-                # verdicts dispatched before the last climb may pass but
-                # never track
-                mc_plateau_r[b].append(_clamp_stat(r[best]))
-        if rhat_backoff is not None and best_stats and int(ck["k"]) > interval_adjusted_at:
-            check_interval, pull = _backoff_adjust(
-                min(best_stats), check_interval, max_interval, rhat_backoff,
-                rhat_threshold, rhat_allowed)
-            if pull:
-                next_check_at = 0
-            interval_adjusted_at = k
+            else:
+                ladder.track_rhat(b, int(ck["k"]), r[best])
+        if best_stats:
+            cadence.adjust(min(best_stats), int(ck["k"]), k)
 
     def settle(b, avg):
         """Retire restart ``b`` with ``avg`` as its result."""
@@ -993,46 +922,30 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
         round_start[b] = k
         k_conv[b] = k_stopped[b] = W_check[b] = last_best_W[b] = -1
         frozen[b] = last_checked_avg[b] = None
-        mc_plateau_r[b].clear()
-        mc_plateau_m[b].clear()
+        ladder.clear(b)
         return avg_b
 
     def maybe_escalate():
         # one S for the batch: the rung climbs only when every live
         # restart's binding gate (its own round's tracker) has plateaued
-        nonlocal mc_escalated_at, check_interval, next_check_at, interval_adjusted_at
-        if mc_escalation is None or int(objective.num_mc_samples) >= mc_max:
-            return
         live = [b for b in range(B) if active[b] and k_stopped[b] < 0]
-        if not live:
+        stats = ladder.stalled(live, k_conv >= 0)
+        if stats is None:
             return
-        stats = []
-        for b in live:
-            tr = mc_plateau_r[b] if k_conv[b] < 0 else mc_plateau_m[b]
-            if not _plateaued(tr):
-                return
-            stats.append(tr[-1])
-        new_S = min(int(np.ceil(objective.num_mc_samples * mc_escalation)), mc_max)
-        objective.num_mc_samples = new_S
+        # events on the run's step axis, the warm prelude's steps included
+        new_S = ladder.climb(k, at=k + k_offset)
         if engine.stateful:
             run.obj_states = engine.resize_obj_states(run.obj_states, run.var_params)
-        mc_escalated_at = k
-        mc_events.append((k + k_offset, int(objective.num_mc_samples)))
-        for b in range(B):
-            mc_plateau_r[b].clear()
-            mc_plateau_m[b].clear()
         # the new noise regime at full cadence; converged restarts recheck
         # one W_min after the climb (round-local)
-        check_interval = 1
-        next_check_at = 0
-        interval_adjusted_at = k
+        cadence.reset(k)
         for b in live:
             if k_conv[b] >= 0:
                 W_check[b] = (ring_clock(b) - k_conv[b]) + W_min
         if verbose:
             print("MC escalation: convergence gates stalled (worst {:.3g}); "
                   "num_mc_samples -> {} at iteration {}".format(
-                      max(stats), objective.num_mc_samples, k + k_offset))
+                      max(stats), new_S, k + k_offset))
 
     # the budget is a fresh allotment each call (loop_start carries the
     # recheck cost model across resumes); read only when one is set
@@ -1060,8 +973,8 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
             W_upper_b = min(int(0.95 * kb[b]), R)
             if W_upper_b > W_min and W_upper_b >= 2 * G:
                 eligible.append((b, W_upper_b))
-        if eligible and k >= next_check_at:
-            next_check_at = k + k_check * check_interval
+        if eligible and cadence.due(k):
+            cadence.dispatched(k, k_check)
             cand_sets = {b: _candidate_windows(W_min, w, G) for b, w in eligible}
             union = np.unique(np.concatenate(list(cand_sets.values())))
             K_pad = 1 << int(np.ceil(np.log2(max(len(union), 1))))
@@ -1108,11 +1021,8 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
                     frozen[b] = avg
                 else:
                     last_checked_avg[b] = avg
-                    if (mc_escalation is not None and int(W[b]) >= R
-                            and int(objective.num_mc_samples) < mc_max):
-                        # a ring-capped window: a stalled gate is an SNR wall
-                        mc_plateau_m[b].append(_clamp_stat(
-                            max(mcse_stat / mcse[b], ESS_min / max(ess_stat, 1e-300))))
+                    ladder.track_mcse(b, int(W[b]) >= R, mcse_stat, mcse[b], ess_stat,
+                                      ESS_min)
                     total_opt = max(engine.agree(_now() - loop_start) - mcse_time_total,
                                     1e-9)
                     W_check[b] = int(_recheck_scale(
@@ -1161,9 +1071,7 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
                 run.obj_states = objective.reset_obj_state_rows(run.obj_states, advanced)
             if rhat_backoff is not None:
                 # a fresh round needs full-cadence checks
-                check_interval = 1
-                next_check_at = 0
-                interval_adjusted_at = k
+                cadence.reset(k)
         if round_callback is not None and (advanced or settled_any):
             round_callback(int(n_rounds_b.sum()), outer_snapshot(copy_rings=True))
 
@@ -1204,7 +1112,6 @@ def _multistart_raabbvi_async(sgo, K_max, objective, init_params, generators,
         "obj_state_errors": list(obj_errors),
         "resume_state": resume_snap,
     }
-    if mc_escalation is not None:
-        results["mc_escalation_history"] = np.asarray(mc_events,
-                                                      dtype=np.int64).reshape(-1, 2)
+    if ladder.escalation is not None:
+        results["mc_escalation_history"] = _events_array(ladder.events)
     return results

@@ -5,6 +5,7 @@ The TPU-specific helpers of the JAX module (``pack_rows``,
 compilation cache) have no counterpart: the port keeps plain ``(R, D)``
 rings. :class:`GraphSafety` is how a step rule, an objective, a family and
 a model each state whether a CUDA graph may replay their part of a step.
+The private helpers below serve the engines' resume states and clocks.
 """
 
 import math
@@ -41,6 +42,38 @@ class GraphSafety:
         if not self.graph_safe:
             return f"{type(self).__name__} is not stated safe to replay"
         return None
+
+
+# indirection so tests can stub the engines' clock deterministically
+_now = time.perf_counter
+
+
+def _clone_state(state):
+    """A copy of a state dict's tensors (a step rule may write its state
+    in place, and a resume state must stay reusable)."""
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in state.items()}
+
+
+def _set_generator_state(generator, state):
+    """Continue ``generator`` from a saved ``get_state()``. A CPU and a
+    CUDA generator keep states of different sizes, and one cannot seed
+    the other. The state is copied first: ``set_state`` reads a view
+    with a storage offset (a row of stacked states) from the wrong place
+    and can crash."""
+    state = torch.as_tensor(state, dtype=torch.uint8, device="cpu").clone()
+    if state.numel() != generator.get_state().numel():
+        raise ValueError(
+            "the resume_state's generator_state was taken from a generator on "
+            f"another device type than this {generator.device.type!r} one; pass "
+            "a generator on the device type of the run that saved it")
+    generator.set_state(state)
+
+
+def _int_list(x):
+    """A short integer vector of a resume state (a list, a numpy array or
+    a tensor on any device) as a list of ints."""
+    return [int(v) for v in torch.as_tensor(x).tolist()]
 
 
 class Timer:
