@@ -101,6 +101,86 @@ def test_divergence_wasserstein_and_error_bounds_match_jax():
             _close(e_t[name], e_j[name])
 
 
+def _perturbed(factor):
+    """L Lᵀ at d = 50 with its (0, 1) entries zeroed, then given a skew part
+    whose Frobenius norm is ``factor`` times the symmetric route's
+    tolerance on its largest |eigenvalue| (exact: the entries it moves are
+    zero)."""
+    var = torch.as_tensor(_spectral_cases("full_rank"))
+    var[0, 1] = var[1, 0] = 0.0
+    lam = float(torch.linalg.eigvalsh(var).abs().max())
+    delta = factor * 64 * torch.finfo(torch.float64).eps * lam / np.sqrt(2.0)
+    var[0, 1], var[1, 0] = delta, -delta
+    return var.numpy()
+
+
+def _spectral_cases(case):
+    rng = np.random.RandomState(2026)
+    d = 50
+    if case == "full_rank":
+        L = np.tril(rng.randn(d, d)) + 3.0 * np.eye(d)
+        return L @ L.T
+    if case == "diagonal":
+        return np.diag(np.exp(rng.randn(d)))
+    if case == "low_rank":
+        B = rng.randn(d, 5)
+        return B @ B.T + np.diag(np.exp(rng.randn(d)))
+    if case == "indefinite":  # its largest |eigenvalue| is a negative one
+        Q, _ = np.linalg.qr(rng.randn(d, d))
+        return (Q * np.linspace(-7.0, 3.0, d)) @ Q.T
+    if case == "nonsymmetric":
+        return rng.randn(d, d) + 2.0 * np.eye(d)
+    return _perturbed(1 - 1e-3 if case == "just_under" else 1 + 1e-3)
+
+
+@pytest.mark.parametrize("case,kwarg,routes", [
+    ("full_rank", "q_var", ["eigh"]),
+    ("diagonal", "q_var", ["eigh"]),
+    ("low_rank", "q_var", ["eigh"]),
+    ("indefinite", "p_var", ["eigh"]),
+    ("nonsymmetric", "p_var", ["svd"]),
+    ("just_under", "q_var", ["eigh"]),
+    ("just_over", "q_var", ["eigh", "svd"]),
+])
+def test_cov_norm_routes_match_jax(monkeypatch, case, kwarg, routes):
+    """``cov_error`` of error_bounds and all_diagnostics against JAX's
+    ``ord=2`` norm: a symmetric matrix takes the eigensolve, anything else
+    the SVD; a skew part just over the tolerance starts the eigensolve and
+    returns the SVD's answer."""
+    var = _spectral_cases(case)
+    ran = []
+    eigvalsh, matrix_norm = torch.linalg.eigvalsh, torch.linalg.matrix_norm
+
+    def recorded_eigvalsh(A, *args, **kwargs):
+        ran.append("eigh")
+        return eigvalsh(A, *args, **kwargs)
+
+    def recorded_norm(A, ord="fro", *args, **kwargs):
+        if ord == 2:
+            ran.append("svd")
+        return matrix_norm(A, ord, *args, **kwargs)
+
+    monkeypatch.setattr(torch.linalg, "eigvalsh", recorded_eigvalsh)
+    monkeypatch.setattr(torch.linalg, "matrix_norm", recorded_norm)
+    _, lw = _log_weights(3000, 1.0, 1.3, seed=3)
+
+    def moments(p):
+        return 1.0 + p
+
+    for name, port, ref in [
+        ("error_bounds", lambda: dt.error_bounds(W2=torch.tensor(0.3, dtype=torch.float64),
+                                                 **{kwarg: torch.as_tensor(var)}),
+         lambda: dj.error_bounds(W2=jnp.asarray(0.3), **{kwarg: jnp.asarray(var)})),
+        ("all_diagnostics", lambda: dt.all_diagnostics(torch.as_tensor(lw), moment_bound_fn=moments,
+                                                       **{kwarg: torch.as_tensor(var)}),
+         lambda: dj.all_diagnostics(jnp.asarray(lw), moment_bound_fn=moments,
+                                    **{kwarg: jnp.asarray(var)})),
+    ]:
+        ran.clear()
+        _close(port()["cov_error"], ref()["cov_error"], rtol=1e-10)
+        assert ran == routes, name
+
+
 def _aniso():
     sd = np.array([1.0, 2.0, 0.5])
 

@@ -189,7 +189,7 @@ def _diagnostics_call(branch):
 
 
 @pytest.mark.parametrize("branch,phases", [
-    ("bounds", ("log_weights", "psis", "moments", "bounds", "cov_norm")),
+    ("bounds", ("log_weights", "psis", "moments", "bounds", "cov_norm", "cov_norm.eigh")),
     ("ksd", ("log_weights", "psis", "ksd")),
 ])
 def test_vi_diagnostics_records_its_phases_once(branch, phases):
@@ -207,3 +207,28 @@ def test_vi_diagnostics_records_its_phases_once(branch, phases):
             assert torch.equal(value, traced[key]), key
         else:
             assert value == traced[key], key
+    if branch == "bounds":
+        assert _inside(spans["viabel.diag.cov_norm.eigh"], spans["viabel.diag.cov_norm"])
+
+
+@pytest.mark.parametrize("p_var,eigh", [
+    ([[2.0, 0.5], [0.5, 1.0]], True),
+    ([[2.0, 1.0], [0.0, 1.0]], False),
+])
+def test_cov_norm_opens_the_eigensolve_for_a_symmetric_matrix_only(p_var, eigh):
+    """A user's p_var: symmetric, the eigensolve inside the norm's span;
+    not symmetric, the norm's span alone (the SVD)."""
+    log_weights = torch.as_tensor(np.random.RandomState(0).randn(500) * 0.1)
+
+    def bounds():
+        return vt.diagnostics.all_diagnostics(
+            log_weights, moment_bound_fn=lambda p: 1.0 + p,
+            p_var=torch.tensor(p_var, dtype=torch.float64))
+
+    plain = bounds()
+    traced, spans = _profiled(bounds)
+    names = {"viabel.diag.bounds", "viabel.diag.cov_norm"}
+    assert set(spans) == (names | {"viabel.diag.cov_norm.eigh"} if eigh else names)
+    assert all(len(found) == 1 for found in spans.values())
+    assert _inside(spans.get("viabel.diag.cov_norm.eigh", []), spans["viabel.diag.cov_norm"])
+    assert float(plain["cov_error"]) == float(traced["cov_error"])

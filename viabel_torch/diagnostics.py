@@ -58,8 +58,36 @@ def _compute_norm_if_needed(var):
     if var.dim() == 2:
         # spectral norm for matrix (co)variances
         with span("viabel.diag.cov_norm"):
-            return torch.linalg.matrix_norm(var, ord=2)
+            return _spectral_norm(var)
     return var
+
+
+def _spectral_norm(var):
+    """``matrix_norm(var, ord=2)`` of a 2-D ``var``, from a symmetric
+    eigensolve where ``var`` is symmetric.
+
+    A real square ``var`` whose skew part ``(var - var.mT) / 2`` has a
+    Frobenius norm within ``64 * eps`` of its dtype (7.6e-6 in float32,
+    1.4e-14 in float64) of the answer, relative, gets ``max |eigvalsh((var
+    + var.mT) / 2)|``: by Weyl's inequality that is within the skew part's
+    norm of ``ord=2`` of ``var``. Any other matrix, one with a non-finite
+    entry among them, gets ``matrix_norm(var, ord=2)``, an SVD. A skew part
+    over the tolerance relative to ``||sym||_F``, a bound on the answer,
+    never starts the eigensolve; one between the two tolerances starts it,
+    then takes the SVD.
+    """
+    if var.is_floating_point() and var.shape[0] == var.shape[1] > 0:
+        tol = 64 * torch.finfo(var.dtype).eps
+        sym = (var + var.mT) / 2
+        skew, bound = torch.stack([torch.linalg.matrix_norm(var - var.mT) / 2,
+                                   torch.linalg.matrix_norm(sym)]).tolist()
+        if skew <= tol * bound:
+            with span("viabel.diag.cov_norm.eigh"):
+                norm = torch.linalg.eigvalsh(sym).abs().max()
+            # an exactly symmetric var needs no second read
+            if skew == 0 or skew <= tol * float(norm):
+                return norm
+    return torch.linalg.matrix_norm(var, ord=2)
 
 
 def error_bounds(*, W1=_INF, W2=_INF, q_var=_INF, p_var=_INF):

@@ -61,6 +61,12 @@ that call. The spans and what each encloses:
     the divergence, Wasserstein and error bounds (``all_diagnostics``).
 ``viabel.diag.cov_norm``
     a covariance's spectral norm inside the error bounds.
+``viabel.diag.cov_norm.eigh``
+    the symmetric eigensolve inside ``viabel.diag.cov_norm``
+    (``diagnostics._spectral_norm``): it opens once for a symmetric
+    covariance, as every family's is, and never for a matrix whose skew
+    part rules the route out before the solve. Its count over the calls
+    says how often the route engages.
 ``viabel.diag.ksd``
     the calibrated KSD test, past the k-hat gate.
 """
