@@ -224,16 +224,18 @@ class _MeanFieldLocScale(ApproximationFamily):
     ExclusiveKL's control-variate estimators."""
 
     def __init__(self, dim, supports_entropy, supports_kl, device, dtype,
-                 base_sampler=None):
+                 base_sampler=None, init_log_sigma=2.0):
         super().__init__(dim, 2 * dim, supports_entropy, supports_kl, device,
                          dtype, base_sampler)
+        self._init_log_sigma = float(init_log_sigma)
 
     def unpack(self, var_param):
         return var_param[: self.dim], var_param[self.dim:]
 
     def init_param(self):
-        # mu = 0, log_sigma = 2 (reference approximations.py:207-210)
-        return torch.cat([self._zeros(self.dim), 2.0 + self._zeros(self.dim)])
+        # mu = 0, log_sigma = 2 by default (reference approximations.py:207-210)
+        return torch.cat([self._zeros(self.dim),
+                          self._init_log_sigma + self._zeros(self.dim)])
 
     def fold_affine(self, var_param, loc, scale):
         """Exact affine pushforward: ``mu' = loc + scale * mu``,
@@ -244,12 +246,21 @@ class _MeanFieldLocScale(ApproximationFamily):
 
 
 class MFGaussian(_MeanFieldLocScale):
-    """Mean-field Gaussian, ``var_param = [mu, log_sigma]``."""
+    """Mean-field Gaussian, ``var_param = [mu, log_sigma]``.
+
+    ``init_param`` starts at ``mu = 0`` and ``log_sigma = init_log_sigma``
+    in every coordinate. The default 2.0 (sigma = 7.4) is the reference's
+    start; a posterior over a network's weights wants its prior's scale
+    instead (``init_log_sigma=0.0`` under a unit Gaussian prior), as
+    ``FullRankGaussian`` takes ``init_log_diag``.
+    """
 
     graph_safe = True
 
-    def __init__(self, dim, base_sampler=None, device="cuda", dtype=None):
-        super().__init__(dim, True, True, device, dtype, base_sampler)
+    def __init__(self, dim, init_log_sigma=2.0, base_sampler=None, device="cuda",
+                 dtype=None):
+        super().__init__(dim, True, True, device, dtype, base_sampler,
+                         init_log_sigma=init_log_sigma)
 
     def sample(self, var_param, n_samples, generator):
         mu, log_sigma = self.unpack(var_param)

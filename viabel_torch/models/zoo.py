@@ -11,12 +11,13 @@ import math
 import numpy as np
 import torch
 
+from ..tracing import span
 from ..utils import check_device
 from .base import Model
 
 __all__ = ["funnel", "correlated_gaussian", "diagonal_gaussian",
            "gaussian_mixture", "robust_regression", "eight_schools",
-           "logistic_regression"]
+           "logistic_regression", "bnn_classifier"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -175,5 +176,102 @@ def logistic_regression(dim=500, n_data=1000, seed=0, prior_scale=1.0,
             torch.zeros((), dtype=logits.dtype, device=logits.device), logits), dim=-1)
         logprior = torch.sum(_norm_logpdf(beta, 0.0, prior_scale), dim=-1)
         return loglik + logprior
+
+    return Model(log_density), dim
+
+
+def _bnn_shapes(in_dim, hidden, classes):
+    """``(fan_in, fan_out)`` of each layer of the classifier."""
+    widths = [int(in_dim), *(int(h) for h in hidden), int(classes)]
+    return list(zip(widths[:-1], widths[1:]))
+
+
+def _bnn_logits(theta, x, shapes):
+    """The classifier's logits at one weight vector a row of ``theta``
+    (NumPy, the teacher that labels the data): ``(n_data, classes)``."""
+    h, at = x, 0
+    for i, (m, n) in enumerate(shapes):
+        W = theta[at:at + m * n].reshape(m, n)
+        b = theta[at + m * n:at + m * n + n]
+        at += m * n + n
+        h = h @ W / np.sqrt(m) + b
+        if i < len(shapes) - 1:
+            h = np.maximum(h, 0.0)
+    return h
+
+
+def _bnn_data(n_data, shapes, seed):
+    """The classifier's inputs ``(n_data, in_dim)`` and labels ``(n_data,)``
+    (NumPy, float64 and int64), drawn as :func:`bnn_classifier` says."""
+    rng = np.random.RandomState(seed)
+    x = rng.rand(n_data, shapes[0][0])
+    teacher = rng.randn(sum(m * n + n for m, n in shapes))
+    f = _bnn_logits(teacher, x, shapes)
+    p = np.exp(f - f.max(axis=1, keepdims=True))
+    cdf = np.cumsum(p / p.sum(axis=1, keepdims=True), axis=1)
+    y = np.minimum((rng.rand(n_data)[:, None] > cdf).sum(axis=1), shapes[-1][1] - 1)
+    return x, y
+
+
+def bnn_classifier(n_data=512, in_dim=784, hidden=(400, 400), classes=10, seed=0,
+                   device="cuda", dtype=None):
+    """Bayesian neural-network classifier: the posterior over every weight
+    and bias of a ReLU multilayer perceptron with a softmax output (Blundell
+    et al., "Weight Uncertainty in Neural Networks", ICML 2015, section 5.1:
+    784-400-400-10 on MNIST, d = 478,410).
+
+    ``theta`` is laid out layer by layer as ``W (fan_in * fan_out,
+    row-major)`` then ``b (fan_out)``. With ``h_0 = x``,
+
+        ``h_l = relu(h_{l-1} W_l / sqrt(fan_in_l) + b_l)``, the last layer
+        without the relu, giving the logits ``f``;
+        ``log p(y | theta) = sum_i [f_{i, y_i} - logsumexp_k f_{i, k}]``;
+        ``log p(theta) = sum_j log N(theta_j; 0, 1)``.
+
+    The data come from ``numpy.random.RandomState(seed)`` in this order:
+    inputs ``x ~ U[0, 1)^(n_data x in_dim)`` (pixel-like intensities), a
+    teacher ``theta* ~ N(0, I)``, then labels ``y_i ~ Categorical(softmax(
+    f(x_i; theta*)))`` by inverse CDF on ``rand(n_data)``.
+
+    Departures from Blundell et al.: each product is scaled by
+    ``1 / sqrt(fan_in)`` (the NTK parameterization), so the unit prior puts
+    ``N(0, 1 / fan_in)`` on the effective weights and a q started at the
+    prior is a He-scaled network; the prior is the Gaussian of their
+    Table 1, not the scale mixture; the data are synthetic; and the
+    likelihood takes the whole of the ``n_data`` rows, not minibatches.
+
+    The log density runs S networks at once on the ``(S, d)`` input, cut
+    into views: the first layer is one batched product of the shared
+    inputs with every draw's ``W_1``, the others batched products with
+    each draw's own weights. It reads nothing back to the host, so a CUDA
+    graph replays its steps. Returns ``(model, d)``.
+    """
+    dtype = dtype or torch.get_default_dtype()
+    device = check_device(device)
+    shapes = _bnn_shapes(in_dim, hidden, classes)
+    dim = sum(m * n + n for m, n in shapes)
+    x_np, y_np = _bnn_data(n_data, shapes, seed)
+    x = torch.as_tensor(x_np, dtype=dtype, device=device)
+    onehot = torch.zeros((n_data, int(classes)), dtype=dtype, device=device)
+    onehot[torch.arange(n_data, device=device), torch.as_tensor(y_np, device=device)] = 1.0
+    sizes = [size for m, n in shapes for size in (m * n, n)]
+    scales = [1.0 / math.sqrt(m) for m, _ in shapes]
+    log_norm = 0.5 * dim * _LOG_2PI
+
+    def log_density(theta):
+        with span("viabel.bnn.log_density"):
+            S = theta.shape[0]
+            pieces = torch.split(theta, sizes, dim=1)
+            h = x.expand(S, *x.shape)
+            for i, (m, n) in enumerate(shapes):
+                W, b = pieces[2 * i].view(S, m, n), pieces[2 * i + 1]
+                h = torch.baddbmm(b.unsqueeze(1), h, W, alpha=scales[i])
+                if i < len(shapes) - 1:
+                    h = torch.relu_(h)
+            loglik = torch.sum(h * onehot, dim=(1, 2)) - torch.sum(
+                torch.logsumexp(h, dim=2), dim=1)
+            with span("viabel.bnn.prior"):
+                logprior = -0.5 * torch.sum(theta * theta, dim=1) - log_norm
+            return loglik + logprior
 
     return Model(log_density), dim

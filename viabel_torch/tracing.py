@@ -40,6 +40,11 @@ that call. The spans and what each encloses:
     (``g``), and its pass from data to latent with the log-determinant
     (``f``). Like every span inside a step, they open on eager steps, at a
     graph's capture and in ``vi_diagnostics``, never on a replay.
+``viabel.bnn.log_density``, ``viabel.bnn.prior``
+    a :func:`~viabel_torch.models.zoo.bnn_classifier`'s log density over
+    its S networks, and, inside it, the unit Gaussian prior's pass over
+    the S x d weights. Like the flow's, they open on eager steps, at a
+    graph's capture and in ``vi_diagnostics``, never on a replay.
 ``viabel.faso.rhat_dispatch``
     the R-hat statistics over the ring and the start of their copy to the
     host.
