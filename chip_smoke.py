@@ -67,6 +67,9 @@ KERNEL_SOURCES = {
     # no Pallas kernel: the jitted lax.scan (vmapped over chains) of the
     # JAX package's HMC run
     "wlr_hmc": ("viabel_torch/csrc/wlr_hmc.cu", "viabel_tpu/hmc.py:110"),
+    # no Pallas kernel: MFGaussian's STL draw and score, plain XLA in the
+    # JAX package (families.py's sample and log_density)
+    "mf_stl": ("viabel_torch/csrc/mf_stl.cu", None),
 }
 DEVICE = "cuda"
 FLAGSHIP_DIM = 1000
@@ -160,6 +163,10 @@ WLR_SHORT = {"trajectory": dict(num_warmup=0, num_samples=2, num_leapfrog=24),
 #: (76 steps of the budget): 300 steps hold three rounds and two round
 #: regressions; the stopped run ends 8 steps into its third round
 RR_ITERS, RR_STOP = 300, 160
+#: [mf_stl]: the BNN cell's width (a 784-400-400-10 classifier's weights
+#: and biases), timed at each sample count FASO escalates through; a short
+#: FASO run of the BNN's STL fit counts the kernels on every step
+MF_STL_DIM, MF_STL_S, MF_STL_ITERS = 478_410, (10, 40, 160, 400), 300
 #: NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, and FLOP/s outside the
 #: tensor cores by element type
 PEAK_BYTES_PER_S = 3.35e12
@@ -524,6 +531,120 @@ def phase_tri_solve(results):
                     check_solve(g, w, f"adjoint {name} ({d0}, 4096) "
                                 f"{'lower' if lower else 'upper'}")
     torch.cuda.empty_cache()
+
+
+def mf_stl_bound(S, d, dtype):
+    """z read and x written forward, g_x and z read back (4 S d), mu and
+    log_sigma read, log_sigma again, the 2 d gradient written (5 d), log q
+    written and its gradient read (2 S); about an operation an element."""
+    size = torch.finfo(dtype).bits // 8
+    return bound((4 * S * d + 5 * d + 2 * S) * size, 0, dtype)
+
+
+def check_mf_stl(S, d, dtype, gen):
+    """The kernels against the plain versions at (S, d): the draws equal,
+    log q and the gradient within a rounding of ``dtype`` of each sum's
+    scale from the float64 truth (the plain forward's; the gradient's by
+    z / sigma). Returns the tensors and the largest error
+    over that scale."""
+    from viabel_torch.ops import mf_stl_backward, mf_stl_forward, mf_stl_forward_plain
+    vp = torch.cat([torch.randn(d, generator=gen, device=DEVICE),
+                    2.0 * torch.rand(d, generator=gen, device=DEVICE) - 1.0]).to(dtype)
+    z = torch.randn((S, d), generator=gen, device=DEVICE, dtype=dtype)
+    g_x = torch.randn((S, d), generator=gen, device=DEVICE, dtype=dtype)
+    g_lq = torch.rand(S, generator=gen, device=DEVICE, dtype=dtype) + 0.5
+    x, log_q = mf_stl_forward(vp, z)
+    px, _ = mf_stl_forward_plain(vp, z)
+    if not torch.equal(x, px):
+        raise AssertionError(f"mf_stl ({S}, {d}) {dtype}: draws differ from the plain version's")
+    vp64, z64, gx64, glq64 = (t.double() for t in (vp, z, g_x, g_lq))
+    _, truth = mf_stl_forward_plain(vp64, z64)
+    scale = 0.5 * (z64 * z64).sum(1) + vp64[d:].abs().sum() + d
+    worst = float(((log_q.double() - truth).abs() / scale).max())
+    sigma = torch.exp(vp64[d:])
+    for gx, glq in ((g_x, g_lq), (None, g_lq), (g_x, None)):
+        grad = mf_stl_backward(vp, z, gx, glq)
+        # the truth by z / sigma: the plain version's (x - mu) / sigma^2
+        # cancels where sigma z is small beside mu
+        G = torch.zeros_like(z64) if gx is None else gx64.clone()
+        size = G.abs()
+        if glq is not None:
+            G -= glq64[:, None] * z64 / sigma
+            size += (glq64[:, None] * z64 / sigma).abs()
+        want = torch.cat([G.sum(0), sigma * (G * z64).sum(0)])
+        gscale = torch.cat([size.sum(0), sigma * (size * z64.abs()).sum(0)])
+        worst = max(worst, float(((grad.double() - want).abs() / gscale).max()))
+    torch.cuda.synchronize()
+    limit = 2.0 ** -22 if dtype == torch.float32 else 1e-13
+    if not worst <= limit:
+        raise AssertionError(f"mf_stl ({S}, {d}) {dtype}: error {worst} over scale > {limit}")
+    log(f"[mf_stl] ({S}, {d}) {dtype}: draws equal, max_err_over_scale={worst:.3e}")
+    return vp, z, g_x, g_lq, worst
+
+
+def phase_mf_stl(results, path_launches):
+    """The mean-field STL kernels against their plain versions at small
+    and ragged widths and at the BNN cell's, in both types; a step's pair
+    (forward, backward) timed in float32 at each sample count FASO reaches
+    on the BNN cell, beside the plain versions, the composite route they
+    replace (sample, log_density at detached parameters, autograd) and the
+    bytes bound; then a FASO run of the BNN cell's STL fit, whose every
+    step, replayed or eager, launches the kernels."""
+    import viabel_torch as vt
+    from viabel_torch.families import ApproximationFamily
+    from viabel_torch.models import zoo
+    from viabel_torch.ops import (mf_stl_backward, mf_stl_backward_plain, mf_stl_forward,
+                                  mf_stl_forward_plain)
+    gen = torch.Generator(DEVICE).manual_seed(11)
+    for dtype in (torch.float64, torch.float32):
+        for S in (1, 10, 400):
+            for d in (1, 5, 4099):
+                check_mf_stl(S, d, dtype, gen)
+        check_mf_stl(10, MF_STL_DIM, dtype, gen)
+    d = MF_STL_DIM
+    for S in MF_STL_S:
+        vp, z, g_x, g_lq, err = check_mf_stl(S, d, torch.float32, gen)
+
+        def step():
+            mf_stl_forward(vp, z)
+            mf_stl_backward(vp, z, g_x, g_lq)
+
+        def plain():
+            mf_stl_forward_plain(vp, z)
+            mf_stl_backward_plain(vp, z, g_x, g_lq)
+
+        q = vt.MFGaussian(d, base_sampler=TableNormal(z), device=DEVICE, dtype=torch.float32)
+        p = vp.clone().requires_grad_(True)
+
+        def composite():
+            x, log_q = ApproximationFamily.sample_and_stl_log_density(q, p, S, None)
+            torch.autograd.grad((x, log_q), p, (g_x, g_lq))
+
+        ms, fwd_ms = cuda_ms(step), cuda_ms(lambda: mf_stl_forward(vp, z))
+        plain_ms, composite_ms = cuda_ms(plain), cuda_ms(composite)
+        b = mf_stl_bound(S, d, torch.float32)
+        log(f"[mf_stl] ({S}, {d}) float32 kernel_ms={ms:.4f} forward_ms={fwd_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} composite_ms={composite_ms:.4f} "
+            f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']}) "
+            f"roofline={100.0 * b['bound_ms'] / ms:.2f}%")
+        if S == max(MF_STL_S):
+            results["mf_stl"] = {"max_err_over_scale": err, "ms": ms, "plain_ms": plain_ms, **b,
+                                 "library_ms": None, "composite_ms": composite_ms}
+        del vp, z, g_x, g_lq, p, q
+    torch.cuda.empty_cache()
+    model, dim = zoo.bnn_classifier(n_data=N_DATA, in_dim=784, hidden=(400, 400),
+                                    classes=10, seed=0, device=DEVICE, dtype=torch.float32)
+    approx = vt.MFGaussian(dim, init_log_sigma=0.0, device=DEVICE, dtype=torch.float32)
+    objective = vt.ExclusiveKL(approx, model, 10, use_path_deriv=True)
+    faso = vt.FASO(vt.RMSProp(FLAGSHIP_LR), max_history=600)
+    run_gen = torch.Generator(DEVICE).manual_seed(12)
+    res, wall, launches = timed_run(lambda: faso.optimize(
+        MF_STL_ITERS, objective, approx.init_param(), generator=run_gen))
+    steps = report_run("[mf_stl] [bnn_faso]", res, wall, launches)
+    path_launches["mf_stl_bnn"] = launches
+    if launches["mf_stl"] != 3 * steps:
+        raise AssertionError(f"[mf_stl] {launches['mf_stl']} launches over {steps} steps, "
+                             "not three a step")
 
 
 def phase_front_door(res, objective, counts):
@@ -2660,6 +2781,8 @@ def main():
     phase_ring_stats(results)
     phase_stl(results)
     phase_tri_solve(results)
+    mf_stl_launches = {}
+    phase_mf_stl(results, mf_stl_launches)
     res, objective, main_steps_per_s = phase_main_path(counts)
     # the final iterate's factor block, for a float32 check of kernel 2
     d = FLAGSHIP_DIM
@@ -2682,7 +2805,7 @@ def main():
     phase_dis()
     phase_resume()
     phase_flows()
-    path_launches = {"main": {k: v for k, v in counts.items()}}
+    path_launches = {"main": {k: v for k, v in counts.items()}, **mf_stl_launches}
     phase_standardize(path_launches)
     phase_qmc(path_launches)
     phase_subsampled(path_launches)

@@ -65,8 +65,9 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     assert torch.equal(ops.wlr_hmc(init, torch.Generator().manual_seed(0), data, **settings),
                        ops.wlr_hmc_plain(init, torch.Generator().manual_seed(0), data,
                                          **settings))
-    assert ops.launch_counts() == {"ring_group_stats": 0, "stl_transpose_solve": 0,
-                                   "vmem_solve_triangular": 0, "wlr_hmc": 0}
+    assert ops.launch_counts() == {"mf_stl": 0, "ring_group_stats": 0,
+                                   "stl_transpose_solve": 0, "vmem_solve_triangular": 0,
+                                   "wlr_hmc": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -497,7 +498,7 @@ def test_multivariate_t_stl_hook_on_the_card_matches_cpu(cuda, d):
         (g,) = torch.autograd.grad(f, p)
         after = ops.launch_counts()
         results.append((f, g, {k: after[k] - before[k] for k in after}))
-    assert results[0][2] == {"ring_group_stats": 0, "stl_transpose_solve": 1,
+    assert results[0][2] == {"mf_stl": 0, "ring_group_stats": 0, "stl_transpose_solve": 1,
                              "vmem_solve_triangular": 0, "wlr_hmc": 0}
     _assert_rel_close(results[0][0], results[1][0])
     _assert_rel_close(results[0][1], results[1][1])
@@ -530,9 +531,9 @@ def test_iwelbo_on_the_card_matches_cpu(cuda, kind, use_dreg):
         vp.to(cuda), None)
     after = ops.launch_counts()
     moved = {k: after[k] - before[k] for k in after}
-    assert moved == ({"ring_group_stats": 0, "stl_transpose_solve": 1,
+    assert moved == ({"mf_stl": 0, "ring_group_stats": 0, "stl_transpose_solve": 1,
                       "vmem_solve_triangular": 0, "wlr_hmc": 0} if use_dreg else
-                     {"ring_group_stats": 0, "stl_transpose_solve": 0,
+                     {"mf_stl": 0, "ring_group_stats": 0, "stl_transpose_solve": 0,
                       "vmem_solve_triangular": 2, "wlr_hmc": 0})
     val, grad = vt.IWELBO(cpu, model, 10, use_dreg=use_dreg).value_and_grad(vp, None)
     _assert_rel_close(val_c, val)

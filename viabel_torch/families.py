@@ -25,6 +25,7 @@ import math
 import torch
 from torch import func
 
+from .ops.mfstl import mf_stl_backward, mf_stl_forward
 from .ops.trsm import (KERNEL_MAX_DIM, cholesky_factor, stl_transpose_solve,
                        vmem_solve_triangular)
 from .tracing import span
@@ -70,6 +71,58 @@ def _tri_solve(T, B, lower=True):
     if T.is_cuda and T.shape[0] <= KERNEL_MAX_DIM:
         return _TriSolve.apply(T, B, lower)
     return torch.linalg.solve_triangular(T, B, upper=not lower)
+
+
+class _MFSTL(torch.autograd.Function):
+    """MFGaussian's STL draw and score on the card: ``(x, log q)`` from
+    base normals ``z`` by :func:`mf_stl_forward`, and ``var_param``'s
+    gradient from the draws' and the scores' by :class:`_MFSTLGrad`,
+    which differentiates again (``create_graph``) as the composite
+    ``sample`` and ``log_density`` do."""
+
+    @staticmethod
+    def forward(ctx, var_param, z):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(var_param, z)
+        return mf_stl_forward(var_param, z)
+
+    @staticmethod
+    def backward(ctx, g_x, g_lq):
+        var_param, z = ctx.saved_tensors
+        return _MFSTLGrad.apply(var_param, z, g_x, g_lq), None
+
+
+class _MFSTLGrad(torch.autograd.Function):
+    """The STL gradient ``[A, B]``, ``A = sum_s G``, ``B = sigma sum_s G z``
+    with ``G = g_x - g_lq (x - mu) / sigma^2`` at stopped ``mu`` and
+    ``sigma`` (value ``g_x - g_lq z / sigma``), by :func:`mf_stl_backward`;
+    its own backward is the analytic product with the cotangent ``(a, b)``.
+    With ``H = a + b sigma z``: ``g_x`` takes ``H``, ``g_lq`` takes
+    ``-sum_j H z / sigma``, ``mu`` (through ``x``) ``-sum_s g_lq H /
+    sigma^2``, and ``log_sigma`` ``b B`` (``B``'s own ``sigma``) plus
+    ``-sum_s g_lq H z / sigma`` (through ``x``)."""
+
+    @staticmethod
+    def forward(ctx, var_param, z, g_x, g_lq):
+        grad = mf_stl_backward(var_param, z, g_x, g_lq)
+        ctx.save_for_backward(var_param, z, g_x, g_lq, grad)
+        return grad
+
+    @staticmethod
+    def backward(ctx, out):
+        var_param, z, g_x, g_lq, grad = ctx.saved_tensors
+        d = z.shape[1]
+        a, b = out[:d], out[d:]
+        sigma = torch.exp(var_param[d:])
+        H = a + b * sigma * z
+        d_var = torch.cat([torch.zeros_like(a), b * grad[d:]])
+        d_lq = None
+        if g_lq is not None:
+            d_lq = -torch.sum(H * z / sigma, dim=1)
+            w = g_lq[:, None] * H
+            d_var = d_var - torch.cat([w.sum(0) / (sigma * sigma),
+                                       (w * z).sum(0) / sigma])
+        return d_var, None, None if g_x is None else H, d_lq
 
 
 class ApproximationFamily(GraphSafety):
@@ -267,6 +320,16 @@ class MFGaussian(_MeanFieldLocScale):
         z = self._base_normal(generator, n_samples, self.dim, var_param.dtype,
                               var_param.device)
         return mu + torch.exp(log_sigma) * z
+
+    def sample_and_stl_log_density(self, var_param, n_samples, generator):
+        """On the CPU, the composite :meth:`sample` and :meth:`log_density`
+        at detached parameters; on a card, the same draws through one
+        kernel each way (:class:`_MFSTL`, ``csrc/mf_stl.cu``)."""
+        if var_param.device.type == "cpu":
+            return super().sample_and_stl_log_density(var_param, n_samples, generator)
+        z = self._base_normal(generator, n_samples, self.dim, var_param.dtype,
+                              var_param.device)
+        return _MFSTL.apply(var_param, z)
 
     def _entropy(self, var_param):
         _, log_sigma = self.unpack(var_param)

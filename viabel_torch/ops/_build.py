@@ -31,6 +31,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (name, element type) for every exported C function; all return cudaError_t
 _P, _I64, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
+    "viabel_mf_stl_scratch": (_I64, _I64, _I64, ctypes.c_int, ctypes.POINTER(_I64)),
+    "viabel_mf_stl_forward_f32": (_P,) * 6 + (_I64, _I64, _P),
+    "viabel_mf_stl_forward_f64": (_P,) * 6 + (_I64, _I64, _P),
+    "viabel_mf_stl_backward_f32": (_P,) * 6 + (_I64, _I64, _P),
+    "viabel_mf_stl_backward_f64": (_P,) * 6 + (_I64, _I64, _P),
     "viabel_ring_group_stats_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     "viabel_ring_group_stats_f64": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     "viabel_stl_transpose_solve_f32": (_P, _P, _P) + (_I64,) * 6 + (_P,),
@@ -41,7 +46,7 @@ _SIGNATURES = {
     "viabel_wlr_hmc_f64": (_P,) * 7 + (_I64,) * 6 + (_F64,) * 4 + (_P,),
 }
 
-_LAUNCHES = {"ring_group_stats": 0, "stl_transpose_solve": 0,
+_LAUNCHES = {"mf_stl": 0, "ring_group_stats": 0, "stl_transpose_solve": 0,
              "vmem_solve_triangular": 0, "wlr_hmc": 0}
 _state = {"lib": None, "info": None}
 
